@@ -1,0 +1,541 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, one line each (any failed check raises, so the exit code is
+non-zero):
+  1. environment: card name and power limit, torch/CUDA versions, nvcc build
+     of `src/repro_torch/kernels/csrc/aisaq_kernels.cu`;
+  2. kernel parity: every CUDA kernel against its plain PyTorch version on
+     the card, at SIFT1M widths (f32, l2) and SIFT1B widths (u8, mips);
+  3. the main path: a 10k-vector SIFT1M-width index (Vamana graph, PQ
+     trained on the card, chunk table packed on the card) served through
+     `ServingEngine` + `make_device_search_fn(L=256, rerank=100)`, f32 and
+     int8; recall@10 against brute-force groundtruth, agreement with the plain
+     (`backend="ref"`) search, and every kernel's launch count;
+  4. deployment size: a 1M-node SIFT1M-width chunk table (7.94 GB) on the
+     card over the random R-regular start graph, served in batches of 64
+     and 256; QPS, hops, time per hop, fused_hop bytes/s, peak memory,
+     and one profiled search: device busy time by kernel, idle share.
+Then the card line, the `kernels` JSON line (times at the main path's
+shapes) and the result line.
+
+Needs a CUDA card and the CUDA toolkit (`nvcc`); without a card it exits
+non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# H100 SXM peaks (NVIDIA data sheet) for the bound of each kernel
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12          # float32 outside the tensor cores
+
+SRC = "src/repro_torch/kernels/csrc/aisaq_kernels.cu"
+REPLACES = {
+    "fused_hop_f32": "src/repro/kernels/chunk_adc.py:49",
+    "fused_hop_int8": "src/repro/kernels/chunk_adc.py:161",
+    "pq_lut": "src/repro/kernels/pq_lut.py:17",
+    "rerank": "src/repro/kernels/rerank.py:14",
+}
+# search list size L and rerank depth of the served configuration. At
+# SIFT1M widths (m=128 subspaces of one dimension) the reference's int8 LUT
+# recipe (one scale per query) costs recall during traversal; a longer list
+# absorbs it: the int8 recall gap at L=100 is printed beside the served one.
+SEARCH_L = 256
+RERANK = 100
+TOL_DIST = 1e-4          # pq_lut / rerank rtol, atol (tests/test_kernels.py)
+TOL_HOP = 2e-6           # fused_hop scaled atol (tests/test_kernels.py)
+
+
+def log(phase: str, **kv) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
+          flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+
+def device_ms(fns) -> float:
+    """Device time of one call, from a CUDA graph of len(fns) calls (each
+    its own inputs, so gathered rows are not served from L2 by the previous
+    call), replayed three times and timed with CUDA events."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns[:3]:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reps = 3
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * len(fns))
+
+
+def bound_ms(nbytes: float, ops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# checks
+# ---------------------------------------------------------------------------
+
+
+def close_err(a, b) -> float:
+    """Max |a-b|; raises past rtol/atol TOL_DIST."""
+    import torch
+    a, b = a.float(), b.float()
+    err = (a - b).abs()
+    lim = TOL_DIST + TOL_DIST * b.abs()
+    require(bool((err <= lim).all()),
+            f"mismatch beyond rtol=atol={TOL_DIST}: max err "
+            f"{float(err.max())}")
+    return float(err.max())
+
+
+def hop_err(got, want) -> float:
+    """fused_hop outputs: ids equal, finite masks equal, distances within
+    scaled atol TOL_HOP. Returns the max abs distance error."""
+    import torch
+    e1, i1, d1 = got
+    e2, i2, d2 = want
+    require(torch.equal(i1, i2), "fused_hop ids differ from plain version")
+    worst = 0.0
+    for a, b in ((e1, e2), (d1, d2)):
+        fin = torch.isfinite(b)
+        require(torch.equal(torch.isfinite(a), fin),
+                "fused_hop +inf pattern differs from plain version")
+        scale = float(b[fin].abs().max()) + 1e-6
+        err = float((a[fin] - b[fin]).abs().max())
+        require(err / scale <= TOL_HOP,
+                f"fused_hop distance err {err} > {TOL_HOP} * {scale}")
+        worst = max(worst, err)
+    return worst
+
+
+def random_table(N, d, dtype, R, m, device, seed):
+    import torch
+    from repro_torch.core.chunk_layout import ChunkLayout, \
+        pack_chunks_device, pack_chunks_torch
+    rng = np.random.default_rng(seed)
+    lay = ChunkLayout("aisaq", d, dtype, R, m)
+    vecs = (rng.integers(0, 255, (N, d)).astype(np.uint8) if dtype == "uint8"
+            else rng.normal(size=(N, d)).astype(np.float32))
+    adj = rng.integers(-1, N, (N, R)).astype(np.int32)
+    codes = rng.integers(0, 256, (N, m)).astype(np.uint8)
+    words = pack_chunks_torch(torch.from_numpy(vecs).to(device),
+                              torch.from_numpy(adj).to(device),
+                              torch.from_numpy(codes).to(device), lay)
+    ref = np.ascontiguousarray(pack_chunks_device(vecs, adj, codes, lay))
+    require(np.array_equal(words.cpu().numpy().view(np.uint8).reshape(N, -1),
+                           ref), "device packer bytes differ from numpy's")
+    return lay, words
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_env():
+    import torch
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.lib()
+    log("env", card=repr(card_line()), torch=torch.__version__,
+        cuda=torch.version.cuda, device=repr(torch.cuda.get_device_name(0)),
+        nvcc_build_s=f"{_build.build_seconds}",
+        load_s=f"{time.perf_counter() - t0:.3f}")
+
+
+def phase_parity():
+    """Every kernel against its plain version at the two Table-1 widths.
+    Returns the max abs error of each kernel at SIFT1M widths."""
+    import torch
+    from repro_torch.configs import SIFT1B, SIFT1M
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    errs = {}
+    for cfg, metric in ((SIFT1M, "l2"), (SIFT1B, "mips")):
+        rng = np.random.default_rng(7)
+        nq, w, N, ks = 64, cfg.beamwidth, 4096, cfg.pq_ks
+        d, m = cfg.dim, cfg.pq_m
+        lay, words = random_table(N, d, cfg.data_dtype, cfg.R, m, dev, 11)
+        q = torch.from_numpy(rng.normal(size=(nq, d)).astype(np.float32)) \
+            .to(dev)
+        if cfg.data_dtype == "uint8":
+            q = q * 40 + 128
+        cents = torch.from_numpy(rng.normal(size=(m, ks, d // m))
+                                 .astype(np.float32)).to(dev)
+        e_lut = close_err(ops.build_lut(q, cents, metric=metric),
+                          ops.build_lut(q, cents, metric=metric,
+                                        backend="ref"))
+        lut = ops.build_lut(q, cents, metric=metric, backend="ref")
+        fids = torch.from_numpy(rng.integers(-1, N, (nq, w))
+                                .astype(np.int32)).to(dev)
+        hop = {}
+        for adc in ("f32", "int8"):
+            args = (words, fids, lut, q)
+            kw = dict(layout=lay, metric=metric, adc_dtype=adc)
+            got = ops.fused_hop(*args, **kw)
+            hop[adc] = hop_err(got, ops.fused_hop(*args, backend="ref", **kw))
+            if adc == "int8":      # quantization error bound against f32
+                _, _, d32 = ops.fused_hop(*args, backend="ref", layout=lay,
+                                          metric=metric)
+                fin = torch.isfinite(d32)
+                bound = m * float(lut.abs().max()) / 127
+                qerr = float((got[2][fin] - d32[fin]).abs().max())
+                require(qerr <= bound + 1e-3,
+                        f"int8 hop err {qerr} > bound {bound}")
+        # candidates drawn like the index's own vectors (u8 values in the
+        # u8 case), so mips sums do not cancel below the tolerance
+        cand = (rng.integers(0, 256, (nq, 100, d)) if cfg.data_dtype == "uint8"
+                else rng.normal(size=(nq, 100, d)))
+        cand = torch.from_numpy(cand.astype(np.float32)).to(dev)
+        e_rr = close_err(ops.rerank(q, cand, metric=metric),
+                         ops.rerank(q, cand, metric=metric, backend="ref"))
+        shared = cand[0]
+        close_err(ops.rerank(q, shared, metric=metric),
+                  ops.rerank(q, shared, metric=metric, backend="ref"))
+        log("parity", widths=cfg.name, metric=metric, pq_lut_err=e_lut,
+            fused_hop_f32_err=hop["f32"], fused_hop_int8_err=hop["int8"],
+            rerank_err=e_rr)
+        if cfg is SIFT1M:
+            errs = {"pq_lut": e_lut, "fused_hop_f32": hop["f32"],
+                    "fused_hop_int8": hop["int8"], "rerank": e_rr}
+    return errs
+
+
+def build_index_10k(seed: int = 0):
+    """The main path's index: 10k clustered vectors at SIFT1M widths."""
+    import torch
+    from repro_torch.configs import SIFT1M as cfg
+    from repro_torch.core.device_index import from_arrays
+    from repro_torch.core.pq import encode, groundtruth, train_codebooks
+    from repro_torch.core.vamana import build_vamana
+    from repro_torch.data.vectors import make_clustered, make_queries
+    n = 10_000
+    base = make_clustered(n, cfg.dim, seed=seed)
+    queries = make_queries(256, base, seed=seed + 1)
+    t0 = time.perf_counter()
+    graph = build_vamana(base, R=cfg.R, L=64, alpha=cfg.alpha, seed=seed,
+                         two_pass=False)
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    init = np.random.default_rng(seed).choice(n, cfg.pq_ks, replace=False)
+    cents = train_codebooks(base, m=cfg.pq_m, init_idx=init, ks=cfg.pq_ks,
+                            iters=12, device="cuda")
+    codes = encode(cents, base, device="cuda")
+    idx, lay = from_arrays(base, graph, cents, codes, device="cuda")
+    gt = groundtruth(queries, base, 10, device="cuda")
+    torch.cuda.synchronize()
+    log("build10k", n=n, vamana_s=f"{t_graph:.1f}",
+        pq_pack_gt_s=f"{time.perf_counter() - t0:.2f}",
+        table_bytes=idx.chunk_words.numel() * 4,
+        device_stride=lay.device_stride)
+    return idx, lay, queries, gt
+
+
+def phase_main_path(idx, lay, queries, gt):
+    """Serve the queries end to end, f32 and int8, with counts reset just
+    before and read just after."""
+    from repro_torch.configs import SIFT1M as cfg
+    from repro_torch.core.pq import recall_at
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import ServingEngine, \
+        make_device_search_fn
+    kw = dict(metric="l2", L=SEARCH_L, w=cfg.beamwidth,
+              max_hops=cfg.max_hops, rerank=RERANK)
+    fns = {adc: make_device_search_fn(idx, lay, adc_dtype=adc, **kw)
+           for adc in ("f32", "int8")}
+    _build.reset_launch_counts()
+    eng = ServingEngine(fns, max_batch=64, max_wait_ms=2.0)
+    t0 = time.perf_counter()
+    try:
+        reqs = {adc: [eng.submit(q, corpus=adc, k=10) for q in queries]
+                for adc in fns}
+        for rs in reqs.values():
+            for r in rs:
+                require(r.event.wait(120.0), "request timed out")
+                if r.error is not None:
+                    raise r.error
+    finally:
+        eng.stop()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    ids = {adc: np.stack([r.result for r in rs]) for adc, rs in reqs.items()}
+    rec = {adc: recall_at(v, gt, 10) for adc, v in ids.items()}
+    lat = eng.latency_percentiles()
+    agree = {}
+    for adc in fns:
+        ref_fn = make_device_search_fn(idx, lay, adc_dtype=adc,
+                                       backend="ref", **kw)
+        ref_ids = np.concatenate([ref_fn(queries[s:s + 64], 10)
+                                  for s in range(0, len(queries), 64)])
+        agree[adc] = float(np.mean([len(set(a) & set(b)) / 10.0
+                                    for a, b in zip(ids[adc], ref_ids)]))
+    log("main_path", requests=2 * len(queries), wall_s=f"{wall:.3f}",
+        recall10_f32=rec["f32"], recall10_int8=rec["int8"],
+        recall1_f32=recall_at(ids["f32"], gt, 1),
+        ref_agreement_f32=agree["f32"], ref_agreement_int8=agree["int8"],
+        p50_ms=f"{lat['p50_ms']:.2f}", p99_ms=f"{lat['p99_ms']:.2f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    require(rec["f32"] >= 0.8, f"recall@10 {rec['f32']} < 0.8")
+    require(abs(rec["f32"] - rec["int8"]) <= 0.01,
+            f"int8 recall gap {abs(rec['f32'] - rec['int8'])} > 0.01")
+    require(min(agree.values()) >= 0.99,
+            f"top-10 agreement with the plain search {agree} < 0.99")
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel was not launched on the main path: {launches}")
+    short = {}
+    for adc in fns:
+        fn = make_device_search_fn(idx, lay, adc_dtype=adc,
+                                   **dict(kw, L=RERANK))
+        short[adc] = recall_at(np.concatenate(
+            [fn(queries[s:s + 64], 10) for s in range(0, len(queries), 64)]),
+            gt, 10)
+    log("main_path", note="shorter list", L=RERANK,
+        recall10_f32=short["f32"], recall10_int8=short["int8"])
+    return launches
+
+
+def kernel_times(idx, lay, queries, nq: int = 64, c: int = 100):
+    """Kernel, plain-version and library times at the main path's shapes:
+    a serving batch of nq queries, w=4 frontier slots per query on the
+    10k table, c rerank candidates per query."""
+    import torch
+    from repro_torch.kernels import ops
+    dev = idx.device
+    m, ks, dsub = idx.centroids.shape
+    d, R, S = lay.dim, lay.R, lay.device_stride
+    w = 4
+    reps = 20
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.from_numpy(queries[:nq]).to(dev)
+    cents = idx.centroids
+    lut = ops.build_lut(q, cents)
+    fids = [torch.randint(0, idx.n, (nq, w), generator=g, device=dev,
+                          dtype=torch.int32) for _ in range(reps)]
+    cands = [torch.randn((nq, c, d), generator=g, device=dev)
+             for _ in range(reps)]
+    out = {}
+
+    def hop(backend, adc):
+        return [lambda f=f: ops.fused_hop(idx.chunk_words, f, lut, q,
+                                          layout=lay, backend=backend,
+                                          adc_dtype=adc) for f in fids]
+
+    hop_bytes = (nq * w * S + nq * m * ks * 4 + nq * d * 4 + nq * w * 4
+                 + nq * w * 4 + 2 * nq * w * R * 4)
+    hop_ops = nq * w * (R * m + 3 * d)
+    for adc in ("f32", "int8"):
+        out[f"fused_hop_{adc}"] = dict(
+            ms=device_ms(hop("auto", adc)),
+            plain_ms=device_ms(hop("ref", adc)),
+            library_ms=None, nbytes=hop_bytes, ops=hop_ops)
+
+    def lut_lib():
+        qs = q.reshape(nq, m, dsub).permute(1, 0, 2)        # (m, nq, dsub)
+        norms = (qs * qs).sum(-1)[:, :, None] \
+            + (cents * cents).sum(-1)[:, None, :]
+        return torch.baddbmm(norms, qs, cents.transpose(1, 2), alpha=-2.0) \
+            .permute(1, 0, 2).contiguous()
+
+    require(bool(torch.allclose(lut_lib(), lut, rtol=1e-4, atol=1e-4)),
+            "baddbmm LUT differs from the kernel's")
+    out["pq_lut"] = dict(
+        ms=device_ms([lambda: ops.build_lut(q, cents)] * reps),
+        plain_ms=device_ms([lambda: ops.build_lut(q, cents, backend="ref")]
+                           * reps),
+        library_ms=device_ms([lut_lib] * reps),
+        nbytes=nq * d * 4 + m * ks * dsub * 4 + nq * m * ks * 4,
+        ops=nq * m * ks * (6 * dsub + 3))
+
+    def rr_lib(cand):
+        norms = (cand * cand).sum(-1) + (q * q).sum(-1)[:, None]
+        return torch.baddbmm(norms[:, :, None], cand, q[:, :, None],
+                             alpha=-2.0)[:, :, 0]
+
+    out["rerank"] = dict(
+        ms=device_ms([lambda x=x: ops.rerank(q, x) for x in cands]),
+        plain_ms=device_ms([lambda x=x: ops.rerank(q, x, backend="ref")
+                            for x in cands]),
+        library_ms=device_ms([lambda x=x: rr_lib(x) for x in cands]),
+        nbytes=nq * d * 4 + nq * c * d * 4 + nq * c * 4,
+        ops=3 * nq * c * d)
+    return out
+
+
+def phase_deployment():
+    """1M nodes at SIFT1M widths; recall is not judged (random graph)."""
+    import torch
+    from repro_torch.configs import SIFT1M as cfg
+    from repro_torch.core.device_index import beam_search_device, from_arrays
+    from repro_torch.core.pq import encode, train_codebooks
+    from repro_torch.core.vamana import random_regular_graph
+    from repro_torch.data.vectors import make_clustered, make_queries
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import make_device_search_fn
+    n = 1_000_000
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base = make_clustered(n, cfg.dim, seed=2)
+    queries = make_queries(256, base, seed=3)
+    t_data = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vecs = torch.from_numpy(base).cuda()
+    del base
+    graph = random_regular_graph(n, cfg.R, seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    sample = torch.from_numpy(rng.choice(n, 100_000, replace=False)).cuda()
+    cents = train_codebooks(vecs[sample], m=cfg.pq_m,
+                            init_idx=rng.choice(100_000, cfg.pq_ks,
+                                                replace=False),
+                            ks=cfg.pq_ks, iters=12, device="cuda")
+    codes = encode(cents, vecs, device="cuda")
+    idx, lay = from_arrays(vecs, graph, cents, codes, device="cuda")
+    del vecs, graph, codes
+    torch.cuda.synchronize()
+    table = idx.chunk_words.numel() * 4
+    log("build1m", n=n, data_s=f"{t_data:.1f}",
+        graph_pq_pack_s=f"{time.perf_counter() - t0:.2f}", table_bytes=table,
+        note="random R-regular graph: recall is not judged at this size")
+    require(table == n * lay.device_stride, "chunk table size")
+    qt = torch.from_numpy(queries).cuda()
+    for adc in ("f32", "int8"):
+        for nq in (64, 256):
+            fn = make_device_search_fn(idx, lay, metric="l2", L=SEARCH_L,
+                                       w=cfg.beamwidth,
+                                       max_hops=cfg.max_hops, adc_dtype=adc,
+                                       rerank=RERANK)
+            fn(queries[:nq], 10)                   # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids = fn(queries[:nq], 10)
+            t_serve = time.perf_counter() - t0
+            require(ids.shape == (nq, 10) and (ids >= 0).all(),
+                    "deployment search returned bad ids")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, hops = beam_search_device(
+                idx, qt[:nq], k=RERANK, L=SEARCH_L, w=cfg.beamwidth,
+                max_hops=cfg.max_hops, layout=lay, metric="l2",
+                adc_dtype=adc)
+            torch.cuda.synchronize()
+            t_search = time.perf_counter() - t0
+            lut = ops.build_lut(qt[:nq], idx.centroids)
+            g = torch.Generator(device="cuda").manual_seed(1)
+            fids = [torch.randint(0, n, (nq, cfg.beamwidth), generator=g,
+                                  device="cuda", dtype=torch.int32)
+                    for _ in range(20)]
+            hop_ms = device_ms([lambda f=f: ops.fused_hop(
+                idx.chunk_words, f, lut, qt[:nq], layout=lay,
+                adc_dtype=adc) for f in fids])
+            w = cfg.beamwidth
+            hop_bytes = (nq * w * lay.device_stride + nq * cfg.pq_m * 256 * 4
+                         + nq * (w + 2 * w * cfg.R) * 4 + nq * cfg.dim * 4)
+            log("deploy", adc=adc, batch=nq, qps=f"{nq / t_serve:.1f}",
+                serve_ms=f"{t_serve * 1e3:.2f}", hops=hops,
+                search_ms_per_hop=f"{t_search * 1e3 / hops:.3f}",
+                fused_hop_ms=f"{hop_ms:.4f}",
+                fused_hop_GBps=f"{hop_bytes / hop_ms / 1e6:.1f}",
+                hbm_share=f"{hop_bytes / hop_ms * 1e3 / HBM_BYTES_PER_S:.4f}")
+            if (adc, nq) == ("f32", 64):
+                search_ms_64 = t_search * 1e3
+    log("deploy", peak_device_bytes=torch.cuda.max_memory_allocated())
+    # where a hop's time goes: device time by kernel over one profiled
+    # search (batch 64, f32), against the unprofiled wall time of the same
+    # search above (the profiler slows the host, not the device)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, hops = beam_search_device(
+            idx, qt[:64], k=RERANK, L=SEARCH_L, w=cfg.beamwidth,
+            max_hops=cfg.max_hops, layout=lay, metric="l2")
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    log("profile", batch=64, adc="f32", hops=hops,
+        search_ms=f"{search_ms_64:.2f}", device_busy_ms=f"{busy_ms:.3f}",
+        device_idle_share=f"{1 - busy_ms / search_ms_64:.4f}",
+        host_ms_per_hop=f"{(search_ms_64 - busy_ms) / hops:.3f}",
+        device_ops_per_hop=f"{sum(r[2] for r in rows) / hops:.1f}",
+        top=json.dumps([[k[:40], round(t, 4), c] for t, k, c in rows[:10]]))
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_env()
+    errs = phase_parity()
+    idx, lay, queries, gt = build_index_10k()
+    launches = phase_main_path(idx, lay, queries, gt)
+    times = kernel_times(idx, lay, queries)
+    del idx
+    torch.cuda.empty_cache()
+    phase_deployment()
+    kernels = []
+    for name in ("fused_hop_f32", "fused_hop_int8", "pq_lut", "rerank"):
+        t = times[name]
+        b, by = bound_ms(t["nbytes"], t["ops"])
+        kernels.append({
+            "name": name, "route": "cuda", "source": SRC,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": b, "bound_by": by,
+            "library_ms": t["library_ms"]})
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

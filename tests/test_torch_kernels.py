@@ -1,0 +1,214 @@
+"""The port's plain kernel versions (and its wrappers on CPU tensors)
+against the JAX package: `repro.kernels.ref` and the Pallas kernels in
+interpret mode, on the shape sweeps of tests/test_kernels.py plus a
+SIFT1M-width case. Tolerances follow tests/test_kernels.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.adc import np_quantize_lut
+from repro.core.chunk_layout import ChunkLayout as JLayout
+from repro.core.chunk_layout import pack_chunks_device
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.chunk_adc import quantize_lut as jquantize_lut
+from repro_torch.core.chunk_layout import ChunkLayout
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.chunk_adc import fused_hop as fused_hop_wrapper
+from repro_torch.kernels.pq_lut import pq_lut as pq_lut_wrapper
+from repro_torch.kernels.rerank import rerank as rerank_wrapper
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _allclose(a, b, tol=1e-4):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=tol,
+                               atol=tol)
+
+
+def _hop_close(got, want):
+    """ids equal; finite patterns equal; distances within scaled 2e-6."""
+    (e1, i1, d1), (e2, i2, d2) = got, want
+    np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
+    for a, b in ((e1, e2), (d1, d2)):
+        a, b = np.asarray(a), np.asarray(b)
+        fin = np.isfinite(b)
+        assert (np.isfinite(a) == fin).all()
+        scale = np.abs(b[fin]).max() + 1e-6
+        np.testing.assert_allclose(a[fin] / scale, b[fin] / scale, atol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# pq_lut
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nq,d,m,metric", [
+    (1, 32, 4, "l2"), (3, 64, 16, "l2"), (5, 128, 32, "mips"),
+    (2, 96, 8, "l2"), (4, 256, 64, "mips"), (3, 128, 128, "l2"),
+])
+def test_pq_lut_matches_jax(nq, d, m, metric):
+    rng = np.random.default_rng(nq * 1000 + d + m)
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    cents = rng.normal(size=(m, 256, d // m)).astype(np.float32)
+    mine = ref.pq_lut_ref(_t(q), _t(cents), metric=metric).numpy()
+    _allclose(mine, jref.pq_lut_ref(jnp.asarray(q), jnp.asarray(cents),
+                                    metric=metric))
+    if m % 8 == 0:
+        _allclose(mine, jops.build_lut(q, cents, metric=metric,
+                                       backend="pallas_interpret"))
+    # the wrapper and ops on CPU tensors run the plain version
+    np.testing.assert_array_equal(
+        pq_lut_wrapper(_t(q), _t(cents), metric=metric).numpy(), mine)
+    np.testing.assert_array_equal(
+        ops.build_lut(_t(q), _t(cents), metric=metric).numpy(), mine)
+
+
+# ---------------------------------------------------------------------------
+# fused_hop (f32 and int8)
+# ---------------------------------------------------------------------------
+
+
+def _hop_case(dt, R, m, dim, N=100, nq=2, w=4, seed=0):
+    rng = np.random.default_rng(seed)
+    if dt == "uint8":
+        vecs = rng.integers(0, 255, (N, dim)).astype(np.uint8)
+    else:
+        vecs = rng.normal(size=(N, dim)).astype(np.float32)
+    adj = rng.integers(-1, N, (N, R)).astype(np.int32)
+    codes = rng.integers(0, 256, (N, m)).astype(np.uint8)
+    jlay = JLayout("aisaq", dim, dt, R, m)
+    words = np.ascontiguousarray(pack_chunks_device(vecs, adj, codes, jlay)) \
+        .view(np.int32).reshape(N, -1)
+    fids = rng.integers(-1, N, (nq, w)).astype(np.int32)
+    qs = rng.normal(size=(nq, dim)).astype(np.float32)
+    cents = rng.normal(size=(m, 256, dim // m)).astype(np.float32)
+    return jlay, ChunkLayout("aisaq", dim, dt, R, m), words, fids, qs, cents
+
+
+@pytest.mark.parametrize("adc", ["f32", "int8"])
+@pytest.mark.parametrize("dt,metric,R,m,dim", [
+    ("float32", "l2", 8, 8, 32), ("float32", "mips", 24, 16, 64),
+    ("uint8", "l2", 12, 8, 48), ("uint8", "l2", 52, 32, 128),
+    ("float32", "l2", 20, 12, 48), ("uint8", "mips", 16, 4, 16),
+    ("float32", "l2", 56, 128, 128),
+])
+def test_fused_hop_matches_jax(dt, metric, R, m, dim, adc):
+    jlay, lay, words, fids, qs, cents = _hop_case(dt, R, m, dim)
+    lut = np.asarray(jref.pq_lut_ref(jnp.asarray(qs), jnp.asarray(cents),
+                                     metric=metric))
+    jargs = (jnp.asarray(words), jnp.asarray(fids), jnp.asarray(lut),
+             jnp.asarray(qs))
+    targs = (_t(words), _t(fids), _t(lut), _t(qs))
+    mine = ops.fused_hop(*targs, layout=lay, metric=metric, backend="ref",
+                         adc_dtype=adc)
+    _hop_close(mine, jops.fused_hop(*jargs, layout=jlay, metric=metric,
+                                    backend="ref", adc_dtype=adc))
+    if m % 8 == 0:           # the Pallas body needs m % 8 == 0
+        _hop_close(mine, jops.fused_hop(*jargs, layout=jlay, metric=metric,
+                                        backend="pallas_interpret",
+                                        adc_dtype=adc))
+    wrapped = fused_hop_wrapper(*targs, layout=lay, metric=metric,
+                                adc_dtype=adc)
+    for a, b in zip(wrapped, mine):
+        assert torch.equal(a, b)
+    if adc == "int8":        # quantization error bound against f32
+        _, i32, d32 = ops.fused_hop(*targs, layout=lay, metric=metric,
+                                    backend="ref")
+        assert torch.equal(i32, mine[1])
+        fin = torch.isfinite(d32)
+        bound = m * float(np.abs(lut).max()) / 127
+        assert float((mine[2][fin] - d32[fin]).abs().max()) <= bound + 1e-3
+
+
+def test_parse_chunks_words_matches_jax():
+    jlay, lay, words, _, _, _ = _hop_case("uint8", 12, 8, 48, N=10)
+    mine = ref.parse_chunks_words(_t(words), lay)
+    theirs = jref.parse_chunks_words(jnp.asarray(words), jlay)
+    for a, b in zip(mine, theirs):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_pq_adc_ref_matches_jax():
+    rng = np.random.default_rng(3)
+    lut = rng.random((16, 256)).astype(np.float32)
+    codes = rng.integers(0, 256, (300, 16)).astype(np.uint8)
+    np.testing.assert_allclose(
+        ref.pq_adc_ref(_t(lut), _t(codes)).numpy(),
+        np.asarray(jref.pq_adc_ref(jnp.asarray(lut), jnp.asarray(codes))),
+        rtol=1e-5, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# quantize_lut
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_quantize_lut_bit_equal(seed):
+    rng = np.random.default_rng(seed)
+    lut = (rng.normal(size=(3, 12, 256)) * 5).astype(np.float32)
+    # exact half-steps, where the rounding mode decides
+    lut[0, 0, :8] = (np.arange(8) + 0.5) * np.abs(lut[0]).max() / 127
+    q8, scale = ref.quantize_lut(_t(lut))
+    jq8, jscale = jquantize_lut(jnp.asarray(lut))
+    nq8, nscale = np_quantize_lut(lut)
+    np.testing.assert_array_equal(q8.numpy(), np.asarray(jq8))
+    np.testing.assert_array_equal(q8.numpy(), nq8)
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(jscale))
+    np.testing.assert_array_equal(scale.numpy(), nscale)
+
+
+# ---------------------------------------------------------------------------
+# rerank
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nq,c,d,metric", [
+    (1, 64, 32, "l2"), (3, 1000, 128, "l2"), (2, 500, 64, "mips"),
+])
+def test_rerank_matches_jax(nq, c, d, metric):
+    rng = np.random.default_rng(c + d)
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    cand = rng.normal(size=(c, d)).astype(np.float32)
+    mine = ref.rerank_ref(_t(q), _t(cand), metric=metric).numpy()
+    _allclose(mine, jops.rerank(q, cand, metric=metric, backend="ref"))
+    _allclose(mine, jops.rerank(q, cand, metric=metric,
+                                backend="pallas_interpret"))
+    np.testing.assert_array_equal(
+        rerank_wrapper(_t(q), _t(cand), metric=metric).numpy(), mine)
+    # a single query, and a candidate set per query (the serving layout)
+    _allclose(ref.rerank_ref(_t(q[0]), _t(cand), metric=metric).numpy(),
+              mine[0])
+    per_q = np.stack([cand] * nq)
+    _allclose(ops.rerank(_t(q), _t(per_q), metric=metric).numpy(), mine)
+
+
+# ---------------------------------------------------------------------------
+# wrapper contract
+# ---------------------------------------------------------------------------
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor that is not on the CPU never takes the plain version: the
+    wrappers launch on CUDA or raise."""
+    q = torch.zeros((2, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        pq_lut_wrapper(q, torch.zeros((2, 256, 4), device="meta"))
+    with pytest.raises(ValueError, match="CUDA device"):
+        rerank_wrapper(q, torch.zeros((5, 8)))
+    with pytest.raises(ValueError, match="backend"):
+        ops.rerank(q, q, backend="pallas")
+
+
+def test_launch_counts_untouched_on_cpu():
+    _build.reset_launch_counts()
+    _, lay, words, fids, qs, cents = _hop_case("float32", 8, 8, 32)
+    lut = ops.build_lut(_t(qs), _t(cents))
+    ops.fused_hop(_t(words), _t(fids), lut, _t(qs), layout=lay)
+    ops.rerank(_t(qs), _t(qs))
+    assert set(_build.launch_counts) == set(_build.KERNELS)
+    assert all(v == 0 for v in _build.launch_counts.values())
