@@ -8,17 +8,31 @@ non-zero):
   1. environment: card name and power limit, torch/CUDA versions, nvcc build
      of `src/repro_torch/kernels/csrc/aisaq_kernels.cu`;
   2. kernel parity: every CUDA kernel against its plain PyTorch version on
-     the card, at SIFT1M widths (f32, l2) and SIFT1B widths (u8, mips);
+     the card, at SIFT1M widths (f32, l2) and SIFT1B widths (u8, mips), and
+     the bulk ADC (f32 and int8 LUT, u8 and i32 codes, m = 10, 16, 128);
   3. the main path: a 10k-vector SIFT1M-width index (Vamana graph, PQ
      trained on the card, chunk table packed on the card) served through
      `ServingEngine` + `make_device_search_fn(L=256, rerank=100)`, f32 and
      int8; recall@10 against brute-force groundtruth, agreement with the plain
      (`backend="ref"`) search, and every kernel's launch count;
-  4. deployment size: a 1M-node SIFT1M-width chunk table (7.94 GB) on the
+  4. DiskANN placement: the same 10k vectors, graph and codes re-packed
+     with mode="diskann" and served the same way; recall@10, agreement with
+     phase 3, fast-tier bytes of both placements at batch 64, the time of
+     each placement's hop alone and per hop of a batch-64 search;
+  5. deployment size: a 1M-node SIFT1M-width chunk table (7.94 GB) on the
      card over the random R-regular start graph, served in batches of 64
      and 256; QPS, hops, time per hop, fused_hop bytes/s, peak memory,
-     and one profiled search: device busy time by kernel, idle share.
-Then the card line, the `kernels` JSON line (times at the main path's
+     and one profiled search: device busy time by kernel, idle share;
+  6. recommender retrieval: SASRec at full width (embed_dim 50, seq_len 50,
+     2 blocks) against 1,000,000 candidates (retrieval_cand), PQ m=10
+     trained and encoded on the card, 64 one-user requests through
+     `retrieval_topk_pq` (pq_lut + pq_adc kernels); latency p50/p99,
+     agreement with the plain path, overlap with exact top-100, launches,
+     and the path's own LUTs and ADC distances against their plain versions;
+  7. bulk ADC: 8 queries against 1,000,000 codes at m=16 through `ops.adc`
+     and `pq_adc_q8`; the int8 error bound and top-10 overlap.
+Each path's launch counts are reset just before it and read just after.
+Then the card line, the `kernels` JSON line (times at each kernel's path
 shapes) and the result line.
 
 Needs a CUDA card and the CUDA toolkit (`nvcc`); without a card it exits
@@ -47,6 +61,8 @@ REPLACES = {
     "fused_hop_int8": "src/repro/kernels/chunk_adc.py:161",
     "pq_lut": "src/repro/kernels/pq_lut.py:17",
     "rerank": "src/repro/kernels/rerank.py:14",
+    "pq_adc": "src/repro/kernels/pq_adc.py:19",
+    "pq_adc_q8": "src/repro/kernels/pq_adc.py:37",
 }
 # search list size L and rerank depth of the served configuration. At
 # SIFT1M widths (m=128 subspaces of one dimension) the reference's int8 LUT
@@ -54,8 +70,21 @@ REPLACES = {
 # absorbs it: the int8 recall gap at L=100 is printed beside the served one.
 SEARCH_L = 256
 RERANK = 100
+# the kernels of the ANN search path (phase 3)
+SEARCH_KERNELS = ("fused_hop_f32", "fused_hop_int8", "pq_lut", "rerank")
 TOL_DIST = 1e-4          # pq_lut / rerank rtol, atol (tests/test_kernels.py)
 TOL_HOP = 2e-6           # fused_hop scaled atol (tests/test_kernels.py)
+# PQ of the SASRec candidates: m=10 (dsub 5), 6 Lloyd iterations, as
+# benchmarks/bench_device.py recsys_pq_retrieval trains them
+RECSYS_PQ_M = 10
+RECSYS_PQ_ITERS = 6
+TOL_ADC = (1e-5, 1e-4)   # pq_adc rtol, atol (tests/test_kernels.py)
+TOL_Q8 = 1e-6            # pq_adc_q8 err / max|out|: integer sums agree
+# (nq, n, m) of the ADC parity cases: the retrieval shape (one SASRec user
+# against 1M candidates, m=10), the bulk-scoring shape (8 queries, m=16)
+# and a wide LUT that does not fit in shared memory (m=128)
+ADC_CASES = ((1, 1_000_000, 10), (8, 1_000_000, 16), (4, 50_000, 128))
+RETRIEVAL_SHAPE, BULK_SHAPE = ADC_CASES[:2]
 
 
 def log(phase: str, **kv) -> None:
@@ -151,6 +180,62 @@ def hop_err(got, want) -> float:
     return worst
 
 
+def adc_err(got, want) -> float:
+    """pq_adc output against its plain version: max abs error; raises past
+    rtol, atol TOL_ADC."""
+    rtol, atol = TOL_ADC
+    err = (got - want).abs()
+    require(bool((err <= atol + rtol * want.abs()).all()),
+            f"pq_adc mismatch beyond rtol={rtol}, atol={atol}: max err "
+            f"{float(err.max())}")
+    return float(err.max())
+
+
+def q8_err(got, want) -> float:
+    """pq_adc_q8 output against its plain version: max abs error; raises
+    past TOL_Q8 * max|want|."""
+    err = float((got - want).abs().max())
+    require(err <= TOL_Q8 * float(want.abs().max()),
+            f"pq_adc_q8 err {err} > {TOL_Q8} * max|out|")
+    return err
+
+
+def adc_parity():
+    """pq_adc and pq_adc_q8 against their plain versions on the card, u8
+    and i32 codes. Returns the max abs error of pq_adc at the retrieval
+    shape and of pq_adc_q8 at the bulk shape, u8 codes (where each runs)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pq_adc import pq_adc, pq_adc_q8
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    errs = {}
+    for nq, n, m in ADC_CASES:
+        lut = torch.rand((nq, m, 256), generator=g, device=dev) * 3
+        codes8 = torch.randint(0, 256, (n, m), generator=g, device=dev,
+                               dtype=torch.uint8)
+        for codes in (codes8, codes8.to(torch.int32)):
+            got, want = pq_adc(lut, codes), ref.adc_ref(lut, codes)
+            err = adc_err(got, want)
+            q8 = pq_adc_q8(lut, codes)
+            err_q8 = q8_err(q8, ref.pq_adc_q8_ref(lut, codes))
+            bound = m * float(lut.abs().max()) / 127
+            require(float((q8 - want).abs().max()) <= bound + 1e-3,
+                    f"pq_adc_q8 {nq}x{n}x{m}: past the int8 bound {bound}")
+            require(torch.equal(pq_adc(lut[0], codes), got[0])
+                    and torch.equal(pq_adc_q8(lut[0], codes), q8[0]),
+                    "2-D LUT does not give the first query's row")
+            if codes.dtype == torch.uint8:
+                if (nq, n, m) == RETRIEVAL_SHAPE:
+                    errs["pq_adc"] = err
+                if (nq, n, m) == BULK_SHAPE:
+                    errs["pq_adc_q8"] = err_q8
+            log("parity", kernel="pq_adc", nq=nq, n=n, m=m,
+                codes=str(codes.dtype).split(".")[1],
+                pq_adc_err=err, pq_adc_q8_err=err_q8)
+    return errs
+
+
 def random_table(N, d, dtype, R, m, device, seed):
     import torch
     from repro_torch.core.chunk_layout import ChunkLayout, \
@@ -241,6 +326,7 @@ def phase_parity():
         if cfg is SIFT1M:
             errs = {"pq_lut": e_lut, "fused_hop_f32": hop["f32"],
                     "fused_hop_int8": hop["int8"], "rerank": e_rr}
+    errs.update(adc_parity())
     return errs
 
 
@@ -271,7 +357,7 @@ def build_index_10k(seed: int = 0):
         pq_pack_gt_s=f"{time.perf_counter() - t0:.2f}",
         table_bytes=idx.chunk_words.numel() * 4,
         device_stride=lay.device_stride)
-    return idx, lay, queries, gt
+    return idx, lay, queries, gt, (base, graph, cents, codes)
 
 
 def phase_main_path(idx, lay, queries, gt):
@@ -323,7 +409,7 @@ def phase_main_path(idx, lay, queries, gt):
             f"int8 recall gap {abs(rec['f32'] - rec['int8'])} > 0.01")
     require(min(agree.values()) >= 0.99,
             f"top-10 agreement with the plain search {agree} < 0.99")
-    require(all(v > 0 for v in launches.values()),
+    require(all(launches[k] > 0 for k in SEARCH_KERNELS),
             f"a kernel was not launched on the main path: {launches}")
     short = {}
     for adc in fns:
@@ -334,7 +420,7 @@ def phase_main_path(idx, lay, queries, gt):
             gt, 10)
     log("main_path", note="shorter list", L=RERANK,
         recall10_f32=short["f32"], recall10_int8=short["int8"])
-    return launches
+    return launches, ids["f32"]
 
 
 def kernel_times(idx, lay, queries, nq: int = 64, c: int = 100):
@@ -504,6 +590,310 @@ def phase_deployment():
         top=json.dumps([[k[:40], round(t, 4), c] for t, k, c in rows[:10]]))
 
 
+def phase_diskann(arrays, aisaq_idx, aisaq_lay, queries, gt, aisaq_ids):
+    """The DiskANN placement of the 10k index: the same vectors, graph and
+    codes re-packed with mode="diskann" (codes in a resident (N, m) table,
+    not in the chunks), served at the main path's L and rerank depth. The
+    hop of each placement is timed alone and within a batch-64 search."""
+    import torch
+    from repro_torch.configs import SIFT1M as cfg
+    from repro_torch.core.device_index import _diskann_hop, \
+        beam_search_device, from_arrays
+    from repro_torch.core.pq import recall_at
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import make_device_search_fn
+    base, graph, cents, codes = arrays
+    idx, lay = from_arrays(base, graph, cents, codes, mode="diskann",
+                           device="cuda")
+    require(idx.pq_codes is not None and lay.mode == "diskann",
+            "diskann index lacks its resident code table")
+    fn = make_device_search_fn(idx, lay, metric="l2", L=SEARCH_L,
+                               w=cfg.beamwidth, max_hops=cfg.max_hops,
+                               rerank=RERANK)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids = np.concatenate([fn(queries[s:s + 64], 10)
+                          for s in range(0, len(queries), 64)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    rec = recall_at(ids, gt, 10)
+    agree = float(np.mean([len(set(a) & set(b)) / 10.0
+                           for a, b in zip(ids, aisaq_ids)]))
+    fast = {"aisaq": aisaq_idx.fast_tier_bytes(64, SEARCH_L),
+            "diskann": idx.fast_tier_bytes(64, SEARCH_L)}
+    log("diskann", requests=len(queries), batch=64, wall_s=f"{wall:.3f}",
+        recall10=rec, agreement_with_aisaq=agree,
+        fast_tier_bytes_aisaq_b64=fast["aisaq"],
+        fast_tier_bytes_diskann_b64=fast["diskann"],
+        launches=json.dumps(launches, separators=(",", ":")))
+    require(ids.shape == (len(queries), 10) and (ids >= 0).all(),
+            "diskann search returned bad ids")
+    require(rec >= 0.8, f"diskann recall@10 {rec} < 0.8")
+    require(launches["pq_lut"] > 0 and launches["rerank"] > 0,
+            f"diskann path skipped a kernel: {launches}")
+    require(fast["diskann"] - fast["aisaq"] == codes.numel(),
+            "diskann fast tier must exceed aisaq's by the (N, m) codes")
+    from repro_torch.kernels import ops
+    q = torch.from_numpy(queries[:64]).cuda()
+    lut = ops.build_lut(q, idx.centroids)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    fids = [torch.randint(0, idx.n, (64, cfg.beamwidth), generator=g,
+                          device="cuda", dtype=torch.int32) for _ in range(20)]
+    hop_ms = {
+        "aisaq": device_ms([lambda f=f: ops.fused_hop(
+            aisaq_idx.chunk_words, f, lut, q, layout=aisaq_lay)
+            for f in fids]),
+        "diskann": device_ms([lambda f=f: _diskann_hop(idx, f, lut, q, lay,
+                                                       "l2") for f in fids])}
+    per_hop = {}
+    for name, (ix, ly) in (("aisaq", (aisaq_idx, aisaq_lay)),
+                           ("diskann", (idx, lay))):
+        kw = dict(k=RERANK, L=SEARCH_L, w=cfg.beamwidth,
+                  max_hops=cfg.max_hops, layout=ly, metric="l2")
+        beam_search_device(ix, q, **kw)                    # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, hops = beam_search_device(ix, q, **kw)
+        torch.cuda.synchronize()
+        per_hop[name] = (time.perf_counter() - t0) * 1e3 / hops
+    log("diskann", batch=64, w=cfg.beamwidth,
+        hop_device_ms_aisaq=f"{hop_ms['aisaq']:.5f}",
+        hop_device_ms_diskann=f"{hop_ms['diskann']:.5f}",
+        search_ms_per_hop_aisaq=f"{per_hop['aisaq']:.4f}",
+        search_ms_per_hop_diskann=f"{per_hop['diskann']:.4f}")
+
+
+def adc_bytes_ops(nq, n, m, ks=256):
+    """Bytes (codes once, f32 LUT once, output once) and adds of a bulk
+    ADC call with u8 codes."""
+    return n * m + nq * m * ks * 4 + nq * n * 4, nq * n * m
+
+
+def adc_times(luts, codes, n_copies: int):
+    """pq_adc / pq_adc_q8 device times at one shape: luts (reps, nq, m, ks)
+    each a call's own query LUT, codes rotated over n_copies copies so that
+    each call finds its codes out of L2 (50 MB), as a request does after
+    the rest of its work. The library yardstick is one embedding_bag call
+    over pre-offset int64 codes (idx precomputed outside the timing)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.pq_adc import pq_adc_q8
+    reps, nq, m, ks = luts.shape
+    copies = [codes.clone() for _ in range(n_copies)]
+    off = torch.arange(m, device=codes.device) * ks
+    idx = [(c.long() + off) for c in copies[:2]]
+    weights = [l.reshape(nq, m * ks).T.contiguous() for l in luts]
+    lib = F.embedding_bag(idx[0], weights[0], mode="sum").T
+    require(bool(torch.allclose(lib, ops.adc(luts[0], copies[0]),
+                                rtol=TOL_ADC[0], atol=TOL_ADC[1])),
+            "embedding_bag ADC differs from the kernel's")
+    pick = [(luts[i], copies[i % n_copies]) for i in range(reps)]
+    return {
+        "pq_adc": dict(
+            ms=device_ms([lambda a=a: ops.adc(*a) for a in pick]),
+            plain_ms=device_ms([lambda a=a: ops.adc(*a, backend="ref")
+                                for a in pick]),
+            library_ms=device_ms([lambda i=i: F.embedding_bag(
+                idx[i % 2], weights[i], mode="sum") for i in range(reps)])),
+        "pq_adc_q8": dict(
+            ms=device_ms([lambda a=a: pq_adc_q8(*a) for a in pick]),
+            plain_ms=device_ms([lambda a=a: ref.pq_adc_q8_ref(*a)
+                                for a in pick]),
+            library_ms=None)}
+
+
+def phase_recsys(n_requests: int = 64, k: int = 100, rerank_mult: int = 4):
+    """SASRec at full width against the 1M-item catalogue (retrieval_cand):
+    random parameters from a seeded generator on the card, PQ (m=10, 6
+    Lloyd iterations on every candidate) trained and encoded on the card,
+    then n_requests one-user requests through retrieval_topk_pq."""
+    import torch
+    from repro_torch.configs import RETRIEVAL_CAND as shape
+    from repro_torch.configs import SASREC as cfg
+    from repro_torch.core.pq import encode, train_codebooks
+    from repro_torch.kernels import _build, ops
+    from repro_torch.models import recsys
+    dev = torch.device("cuda")
+    n, m = shape.n_candidates, RECSYS_PQ_M
+    t0 = time.perf_counter()
+    p = recsys.init_recsys(cfg, generator=torch.Generator(dev).manual_seed(0),
+                           device=dev)
+    cand_ids = torch.arange(n, device=dev)
+    cand = recsys.item_vectors(p, cand_ids)                 # (1M, 50)
+    init = np.random.default_rng(0).choice(n, 256, replace=False)
+    cents = train_codebooks(cand, m=m, init_idx=init, ks=256,
+                            iters=RECSYS_PQ_ITERS, device=dev)
+    codes = encode(cents, cand, device=dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    require(tuple(p.tables[0].shape) == (recsys.padded_vocab(n),
+                                         cfg.embed_dim)
+            and tuple(codes.shape) == (n, m), "recsys shapes")
+    seqs = np.random.default_rng(1).integers(
+        0, cfg.vocab_sizes[0], (n_requests, shape.batch, cfg.seq_len))
+    batches = [{"seq": s, "cand_ids": cand_ids} for s in seqs]
+
+    def serve(b, backend="auto"):
+        return recsys.retrieval_topk_pq(p, b, cfg, codes, cents, k=k,
+                                        rerank_mult=rerank_mult,
+                                        backend=backend)
+
+    serve(batches[0])                                      # warm
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    lat, ids, vals = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        i, v = serve(b)
+        i, v = i.cpu().numpy(), v.cpu().numpy()
+        lat.append(time.perf_counter() - t0)
+        ids.append(i[0])
+        vals.append(v[0])
+    launches = dict(_build.launch_counts)
+    ids, vals = np.stack(ids), np.stack(vals)
+    require(ids.shape == (n_requests, k) and np.isfinite(vals).all()
+            and (ids >= 0).all() and (ids < n).all()
+            and (np.diff(vals, axis=1) <= 0).all(),
+            "retrieval_topk_pq returned bad ids or scores")
+    ref_ids = np.stack([serve(b, "ref")[0].cpu().numpy()[0]
+                        for b in batches])
+    agree = float(np.mean([len(set(a) & set(r)) / k
+                           for a, r in zip(ids, ref_ids)]))
+    exact = np.stack([recsys.retrieval_topk(p, b, cfg, k=k)[0]
+                      .cpu().numpy()[0] for b in batches])
+    overlap = float(np.mean([len(set(a) & set(e)) / k
+                             for a, e in zip(ids, exact)]))
+    users = torch.cat([recsys.user_tower(p, b, cfg) for b in batches[:20]])
+    luts = ops.build_lut(users, cents, metric="mips")           # (20, m, ks)
+    # the kernels on this path's own inputs (mips, m=10, dsub=5, signed
+    # LUTs), each against its plain version
+    err_lut = close_err(luts, ops.build_lut(users, cents, metric="mips",
+                                            backend="ref"))
+    luts = luts[:, None]                                        # (20,1,m,ks)
+    d_pq = [ops.adc(l, codes)[0] for l in luts]
+    err_adc = max(adc_err(d, ops.adc(l, codes, backend="ref")[0])
+                  for d, l in zip(d_pq, luts))
+    lut_ms = {be: device_ms([lambda u=u: ops.build_lut(
+        u[None], cents, metric="mips", backend=be) for u in users])
+        for be in ("auto", "ref")}
+    # the selection over 1M ADC distances: the stable sort the path uses,
+    # beside an unstable topk (ties in no promised order) for its cost
+    sort_ms = device_ms([lambda d=d: torch.sort(d, stable=True)
+                         for d in d_pq])
+    topk_ms = device_ms([lambda d=d: torch.topk(d, k * rerank_mult,
+                                                largest=False)
+                         for d in d_pq])
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve(batches[0])[0].cpu()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve(batches[0])[0].cpu()
+    rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    lat_ms = np.array(lat) * 1e3
+    log("recsys", model=cfg.name, shape=shape.name, candidates=n,
+        embed_dim=cfg.embed_dim, seq_len=cfg.seq_len, blocks=cfg.n_blocks,
+        pq_m=m, setup_s=f"{t_setup:.2f}", requests=n_requests,
+        p50_ms=f"{np.percentile(lat_ms, 50):.3f}",
+        p99_ms=f"{np.percentile(lat_ms, 99):.3f}",
+        mean_ms=f"{lat_ms.mean():.3f}",
+        agreement_with_plain=agree, overlap_with_exact_top100=overlap,
+        pq_lut_err=err_lut, pq_adc_err=err_adc,
+        pq_lut_ms=f"{lut_ms['auto']:.5f}",
+        pq_lut_plain_ms=f"{lut_ms['ref']:.5f}",
+        sort_1m_ms=f"{sort_ms:.4f}", topk400_1m_ms=f"{topk_ms:.4f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    log("recsys_profile", request_ms=f"{one_ms:.3f}",
+        device_busy_ms=f"{busy_ms:.4f}",
+        device_idle_share=f"{1 - busy_ms / one_ms:.4f}",
+        device_ops=sum(r[2] for r in rows),
+        top=json.dumps([[key[:40], round(t, 4), c]
+                        for t, key, c in rows[:8]]))
+    require(launches["pq_lut"] == n_requests
+            and launches["pq_adc"] == n_requests,
+            f"expected {n_requests} pq_lut and pq_adc launches: {launches}")
+    require(agree >= 0.99, f"top-{k} agreement with the plain path {agree}")
+    return launches, adc_times(luts, codes, n_copies=6), \
+        {"pq_lut": err_lut, "pq_adc": err_adc}
+
+
+def phase_bulk_adc(nq: int = 8, n: int = 1_000_000, m: int = 16):
+    """Bulk scoring (the counterpart of benchmarks/bench_device.py
+    bulk_adc_scoring): nq l2 LUTs against n codes through ops.adc and
+    pq_adc_q8. The int8 error bound holds on both data sets; the top-10
+    overlap is judged on the distribution of tests/test_kernels.py
+    (uniform LUT x 3, uniform codes) and printed on the clustered corpus
+    (PQ trained on it), where one scale a query loses near neighbours."""
+    import torch
+    from repro_torch.core.pq import encode, train_codebooks
+    from repro_torch.data.vectors import make_clustered, make_queries
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.pq_adc import pq_adc_q8
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(9)
+    errs = {"pq_adc": 0.0, "pq_adc_q8": 0.0}
+    b_ms, _ = bound_ms(*adc_bytes_ops(nq, n, m))
+
+    def int8_vs_f32(data, lut, codes):
+        """One ops.adc and one pq_adc_q8 call, counted; returns the
+        launches and each query's top-10 overlap."""
+        _build.reset_launch_counts()
+        d = ops.adc(lut, codes)
+        d8 = pq_adc_q8(lut, codes)
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+        errs["pq_adc"] = max(errs["pq_adc"], adc_err(d, ref.adc_ref(lut,
+                                                                  codes)))
+        errs["pq_adc_q8"] = max(errs["pq_adc_q8"],
+                                q8_err(d8, ref.pq_adc_q8_ref(lut, codes)))
+        err = float((d8 - d).abs().max())
+        bound = m * float(lut.abs().max()) / 127
+        top = [len(set(torch.sort(a, stable=True)[1][:10].tolist())
+                   & set(torch.sort(b, stable=True)[1][:10].tolist()))
+               for a, b in zip(d, d8)]
+        log("bulk_adc", data=data, nq=nq, n=n, m=m, int8_err=err,
+            int8_bound=bound, top10_overlap=json.dumps(top),
+            launches=json.dumps(launches, separators=(",", ":")),
+            bound_ms=f"{b_ms:.5f}")
+        require(err <= bound + 1e-3, f"int8 ADC err {err} > bound {bound}")
+        require(launches["pq_adc"] == 1 and launches["pq_adc_q8"] == 1,
+                f"bulk ADC skipped a kernel: {launches}")
+        return launches, top
+
+    lut = torch.rand((nq, m, 256), generator=g, device=dev) * 3
+    codes = torch.randint(0, 256, (n, m), generator=g, device=dev,
+                          dtype=torch.uint8)
+    launches, top = int8_vs_f32("uniform", lut, codes)
+    require(min(top) >= 9, f"int8 top-10 overlap {top} < 9")
+    luts = torch.rand((8, nq, m, 256), generator=g, device=dev) * 3
+    t = adc_times(luts, codes, n_copies=4)
+    log("bulk_adc", note="times at the bulk shape",
+        pq_adc_ms=f"{t['pq_adc']['ms']:.5f}",
+        pq_adc_q8_ms=f"{t['pq_adc_q8']['ms']:.5f}",
+        plain_ms=f"{t['pq_adc']['plain_ms']:.5f}",
+        embedding_bag_ms=f"{t['pq_adc']['library_ms']:.5f}",
+        bound_ms=f"{b_ms:.5f}")
+    base = make_clustered(n, 128, seed=4)
+    queries = torch.from_numpy(make_queries(nq, base, seed=5)).to(dev)
+    vecs = torch.from_numpy(base).to(dev)
+    del base
+    init = np.random.default_rng(4).choice(n, 256, replace=False)
+    cents = train_codebooks(vecs, m=m, init_idx=init, iters=6, device=dev)
+    int8_vs_f32("clustered", ops.build_lut(queries, cents),
+                encode(cents, vecs, device=dev))
+    log("bulk_adc", note="kernel against plain version on both data sets",
+        pq_adc_err=errs["pq_adc"], pq_adc_q8_err=errs["pq_adc_q8"])
+    return launches, t, errs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -513,14 +903,32 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_env()
     errs = phase_parity()
-    idx, lay, queries, gt = build_index_10k()
-    launches = phase_main_path(idx, lay, queries, gt)
+    idx, lay, queries, gt, arrays = build_index_10k()
+    launches, served = phase_main_path(idx, lay, queries, gt)
     times = kernel_times(idx, lay, queries)
-    del idx
+    phase_diskann(arrays, idx, lay, queries, gt, served)
+    del idx, arrays
     torch.cuda.empty_cache()
     phase_deployment()
+    torch.cuda.empty_cache()
+    rec_launches, adc, rec_errs = phase_recsys()
+    torch.cuda.empty_cache()
+    bulk_launches, bulk, bulk_errs = phase_bulk_adc()
+    # pq_lut runs on the search and the retrieval paths: its row keeps the
+    # search shape's times and takes the worse error of the two paths.
+    # pq_adc's row is at the retrieval shape, pq_adc_q8's at the bulk
+    # shape, the one path that launches it.
+    errs["pq_lut"] = max(errs["pq_lut"], rec_errs["pq_lut"])
+    errs["pq_adc"] = max(errs["pq_adc"], rec_errs["pq_adc"])
+    errs["pq_adc_q8"] = max(errs["pq_adc_q8"], bulk_errs["pq_adc_q8"])
+    launches.update(pq_adc=rec_launches["pq_adc"],
+                    pq_adc_q8=bulk_launches["pq_adc_q8"])
+    for name, t, shape in (("pq_adc", adc, RETRIEVAL_SHAPE),
+                           ("pq_adc_q8", bulk, BULK_SHAPE)):
+        nbytes, n_ops = adc_bytes_ops(*shape)
+        times[name] = dict(t[name], nbytes=nbytes, ops=n_ops)
     kernels = []
-    for name in ("fused_hop_f32", "fused_hop_int8", "pq_lut", "rerank"):
+    for name in REPLACES:
         t = times[name]
         b, by = bound_ms(t["nbytes"], t["ops"])
         kernels.append({

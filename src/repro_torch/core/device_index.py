@@ -1,13 +1,15 @@
 """Device AiSAQ index: the chunk table in GPU memory + batched beam search.
 
 Port of `repro.core.device_index`. The (N, device_stride/4) int32 chunk
-table is the "storage tier"; per-hop work (chunk gather, parse, exact
-distance, inline-PQ ADC) is `kernels.ops.fused_hop`. The only per-query
-fast-tier state is the (L,) candidate list, the (m, ks) LUT and the
-rerank pool.
+table is the "storage tier"; in the AiSAQ placement the per-hop work
+(chunk gather, parse, exact distance, inline-PQ ADC) is
+`kernels.ops.fused_hop`, and the only per-query fast-tier state is the
+(L,) candidate list, the (m, ks) LUT and the rerank pool. The DiskANN
+placement (the paper's baseline) keeps every node's PQ code resident in
+an (N, m) table and reads neighbour codes from it.
 
 The reference runs its loop as a `lax.while_loop`; here the host drives
-it with torch ops, one `fused_hop` per hop, and reads one flag per hop to
+it with torch ops, one hop at a time, and reads one flag per hop to
 decide whether any query still has an unexpanded candidate (one
 device-to-host sync per hop).
 """
@@ -26,7 +28,7 @@ from repro_torch.core.chunk_layout import ChunkLayout, chunk_matrix, \
 from repro_torch.core.relabel import invert_permutation
 from repro_torch.device import DeviceLike, resolve_device, to_tensor
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import sum_in_order
+from repro_torch.kernels.ref import expand_rows_ref, sum_in_order
 
 
 @dataclass
@@ -158,20 +160,42 @@ def _smallest(d: torch.Tensor, k: int):
     return vals[:, :k], pos[:, :k]
 
 
+def _diskann_hop(index: DeviceIndex, fids: torch.Tensor, lut: torch.Tensor,
+                 queries: torch.Tensor, layout: ChunkLayout, metric: str):
+    """One hop of the DiskANN placement: exact distances and neighbour ids
+    from the gathered chunk rows, neighbour ADC from the resident (N, m)
+    code table (a gather and an in-order sum), +inf on invalid slots. The
+    reference runs this outside any kernel, so it is plain torch here."""
+    nq, w = fids.shape
+    N, R = index.n, layout.R
+    m, ks = lut.shape[1], lut.shape[2]
+    exact, nids, _, _ = expand_rows_ref(index.chunk_words, fids, queries,
+                                        layout, metric=metric)
+    flat = nids.reshape(nq, w * R).long().clamp(0, N - 1)
+    idx = index.pq_codes[flat].long() \
+        + torch.arange(m, device=lut.device) * ks          # (nq, w*R, m)
+    nd = sum_in_order(torch.gather(
+        lut.reshape(nq, 1, m * ks).expand(nq, w * R, m * ks), 2, idx))
+    nd = torch.where(nids >= 0, nd.reshape(nq, w, R), torch.inf)
+    return exact, nids, nd
+
+
 def beam_search_device(index: DeviceIndex, queries: torch.Tensor, *, k: int,
                        L: int, w: int = 4, max_hops: int = 128,
                        layout: ChunkLayout, metric: str = "l2",
                        backend: str = "auto", adc_dtype: str = "f32"):
-    """Batched AiSAQ beam search. Returns (topk_ids (nq, k) i32,
+    """Batched DiskANN/AiSAQ beam search. Returns (topk_ids (nq, k) i32,
     topk_d (nq, k) f32, hops int).
 
     All queries hop together; finished queries pad their frontier with -1
-    (the hop emits +inf for those lanes). adc_dtype="int8" runs neighbour
-    ADC through the int8 hop; the pool's exact distances stay f32.
+    (the hop emits +inf for those lanes). In aisaq mode every hop is one
+    `fused_hop`, and adc_dtype="int8" runs neighbour ADC through the int8
+    hop; the pool's exact distances stay f32. In diskann mode neighbour
+    codes come from the resident `index.pq_codes` table and ADC is always
+    f32: adc_dtype is ignored there, as the reference ignores it.
     """
-    if layout.mode != "aisaq":
-        raise NotImplementedError(
-            "diskann-mode device search is not ported yet (aisaq only)")
+    if layout.mode == "diskann" and index.pq_codes is None:
+        raise ValueError("diskann layout needs the resident pq_codes table")
     if not 0 < w <= L:
         raise ValueError(f"need 0 < w <= L, got w={w}, L={L}")
     dev = index.device
@@ -216,9 +240,13 @@ def beam_search_device(index: DeviceIndex, queries: torch.Tensor, *, k: int,
             .to(torch.int32).contiguous()
         cand_exp = cand_exp.scatter(1, pos, cand_exp.gather(1, pos) | fvalid)
         # 2. expand: chunk gather + parse + exact dist + neighbour ADC
-        exact, nids, nd = ops.fused_hop(
-            index.chunk_words, fids, lut, queries, layout=layout,
-            metric=metric, backend=backend, adc_dtype=adc_dtype)
+        if layout.mode == "aisaq":
+            exact, nids, nd = ops.fused_hop(
+                index.chunk_words, fids, lut, queries, layout=layout,
+                metric=metric, backend=backend, adc_dtype=adc_dtype)
+        else:
+            exact, nids, nd = _diskann_hop(index, fids, lut, queries, layout,
+                                           metric)
         # 3. rerank pool (exact distances of expanded nodes)
         pool_d, ppos = _smallest(torch.cat([pool_d, exact], 1), L)
         pool_ids = torch.cat([pool_ids, fids], 1).gather(1, ppos)

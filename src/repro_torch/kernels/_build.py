@@ -39,9 +39,12 @@ _SIGNATURES = {
                              _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "aisaq_pq_lut": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
     "aisaq_rerank": [_P, _I, _P, _LL, _I, _I, _I, _P, _P],
+    "aisaq_pq_adc_f32": [_P, _LL, _I, _I, _P, _I, _I, _P, _P],
+    "aisaq_pq_adc_int8": [_P, _LL, _I, _I, _P, _P, _I, _I, _P, _P],
 }
 
-KERNELS = ("fused_hop_f32", "fused_hop_int8", "pq_lut", "rerank")
+KERNELS = ("fused_hop_f32", "fused_hop_int8", "pq_lut", "rerank", "pq_adc",
+           "pq_adc_q8")
 launch_counts = {name: 0 for name in KERNELS}
 build_seconds = None          # wall time of the nvcc run, None if cached
 _lock = threading.Lock()

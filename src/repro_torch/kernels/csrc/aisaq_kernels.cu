@@ -14,6 +14,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -196,8 +198,113 @@ __global__ void rerank_kernel(const float* __restrict__ q, int nq,
   if (lane == 0) out[gw] = mips ? -cross : (cn - 2.f * cross + qn);
 }
 
+// ---------------------------------------------------------------------------
+// pq_adc — replaces repro/kernels/pq_adc.py:_adc_kernel (f32 LUT, the
+// pallas_call in pq_adc.py:pq_adc) and _adc_q8_kernel (int8 LUT, the
+// pallas_call in pq_adc.py:pq_adc_q8).
+//
+// out[q, r] = sum_j lut[q, j, codes[r, j]] over n candidate rows of m code
+// bytes (u8) or words (i32). The Pallas body contracts a one-hot of the
+// codes with the LUT on the MXU, a TPU device; on Hopper the ADC is a
+// gather. Grid (row-tile blocks, nq): each block stages query q's (m, ks)
+// LUT in shared memory once (when it fits in 48 KB: 10 KB at m=10 f32,
+// 32 KB at m=128 int8; otherwise it reads the LUT through __ldg) and then
+// walks row tiles of 256, one thread per row, adding the m entries in
+// order j = 0..m-1. The int8 LUT sums exactly in int32 and is rescaled
+// once by scale/127. Codes are read as they lie (u8 bytes, no widening
+// pass) and clamped to [0, ks) so a bad code cannot read outside the LUT.
+//
+// Bound: bytes — each row's m code bytes are read once and one f32 is
+// written per (q, row); the work is m adds per output. The grid is capped
+// at one resident wave (8 blocks of 256 a SM) so the LUT is staged
+// ~1k times instead of once per 256 rows.
+// ---------------------------------------------------------------------------
+
+template <typename LutT, typename CodeT, bool kSmem>
+__global__ void pq_adc_kernel(const CodeT* __restrict__ codes, long long n,
+                              int m, const LutT* __restrict__ lut, int ks,
+                              const float* __restrict__ scale127,
+                              float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr bool kInt8 = sizeof(LutT) == 1;
+  using AccT = typename std::conditional<kInt8, int, float>::type;
+  const int q = blockIdx.y;
+  const LutT* lq = lut + (long long)q * m * ks;
+  LutT* slut = reinterpret_cast<LutT*>(smem_raw);
+  if (kSmem) {
+    for (int i = threadIdx.x; i < m * ks; i += blockDim.x)
+      slut[i] = __ldg(lq + i);
+    __syncthreads();
+  }
+  const float s127 = kInt8 ? scale127[q] : 1.f;
+  float* oq = out + (long long)q * n;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       r < n; r += step) {
+    const CodeT* c = codes + r * m;
+    AccT acc = 0;
+    for (int j = 0; j < m; ++j) {
+      const int code = min(max((int)__ldg(c + j), 0), ks - 1);
+      acc += kSmem ? slut[j * ks + code] : __ldg(lq + j * ks + code);
+    }
+    oq[r] = kInt8 ? (float)acc * s127 : (float)acc;
+  }
+}
+
 constexpr int kHopThreads = 256;
 constexpr int kThreads = 256;
+
+constexpr int kAdcBlocksPerSm = 8;
+constexpr int kSmemLimit = 48 * 1024;
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (count <= 0) count = 1;
+  }
+  return count;
+}
+
+template <typename LutT, typename CodeT>
+void launch_pq_adc_typed(const void* codes, long long n, int m,
+                         const void* lut, const void* scale127, int nq,
+                         int ks, void* out, cudaStream_t stream) {
+  const long long tiles = (n + kThreads - 1) / kThreads;
+  const long long cap = (long long)sm_count() * kAdcBlocksPerSm;
+  const dim3 grid((unsigned)(tiles < cap ? tiles : cap), (unsigned)nq);
+  const size_t lut_bytes = (size_t)m * ks * sizeof(LutT);
+  const CodeT* c = static_cast<const CodeT*>(codes);
+  const LutT* l = static_cast<const LutT*>(lut);
+  const float* s = static_cast<const float*>(scale127);
+  float* o = static_cast<float*>(out);
+  if (lut_bytes <= (size_t)kSmemLimit) {
+    pq_adc_kernel<LutT, CodeT, true><<<grid, kThreads, lut_bytes, stream>>>(
+        c, n, m, l, ks, s, o);
+  } else {
+    pq_adc_kernel<LutT, CodeT, false><<<grid, kThreads, 0, stream>>>(
+        c, n, m, l, ks, s, o);
+  }
+}
+
+template <typename LutT>
+int launch_pq_adc(const void* codes, long long n, int m, int codes_i32,
+                  const void* lut, const void* scale127, int nq, int ks,
+                  void* out, void* stream) {
+  if (n > 0 && nq > 0 && m > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (codes_i32) {
+      launch_pq_adc_typed<LutT, int32_t>(codes, n, m, lut, scale127, nq, ks,
+                                         out, st);
+    } else {
+      launch_pq_adc_typed<LutT, uint8_t>(codes, n, m, lut, scale127, nq, ks,
+                                         out, st);
+    }
+  }
+  return (int)cudaGetLastError();
+}
 
 template <bool kInt8>
 int launch_fused_hop(const void* words, long long n_rows, int stride_w,
@@ -272,6 +379,20 @@ int aisaq_rerank(const void* q, int nq, const void* cand,
         cand_qstride, C, d, mips, static_cast<float*>(out));
   }
   return (int)cudaGetLastError();
+}
+
+int aisaq_pq_adc_f32(const void* codes, long long n, int m, int codes_i32,
+                     const void* lut, int nq, int ks, void* out,
+                     void* stream) {
+  return launch_pq_adc<float>(codes, n, m, codes_i32, lut, nullptr, nq, ks,
+                              out, stream);
+}
+
+int aisaq_pq_adc_int8(const void* codes, long long n, int m, int codes_i32,
+                      const void* lut_q8, const void* scale127, int nq,
+                      int ks, void* out, void* stream) {
+  return launch_pq_adc<int8_t>(codes, n, m, codes_i32, lut_q8, scale127, nq,
+                               ks, out, stream);
 }
 
 }  // extern "C"

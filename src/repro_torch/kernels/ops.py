@@ -13,6 +13,7 @@ import torch
 from repro_torch.core.chunk_layout import ChunkLayout
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.chunk_adc import fused_hop as _fused_hop_kernel
+from repro_torch.kernels.pq_adc import pq_adc as _pq_adc_kernel
 from repro_torch.kernels.pq_lut import pq_lut as _pq_lut_kernel
 from repro_torch.kernels.rerank import rerank as _rerank_kernel
 
@@ -31,6 +32,15 @@ def build_lut(queries: torch.Tensor, centroids: torch.Tensor, *,
     if backend == "ref":
         return _ref.pq_lut_ref(queries, centroids, metric=metric)
     return _pq_lut_kernel(queries, centroids, metric=metric)
+
+
+def adc(lut: torch.Tensor, codes: torch.Tensor, *, backend: str = "auto"
+        ) -> torch.Tensor:
+    """lut (nq, m, ks) or (m, ks); codes (n, m) -> (nq, n) or (n,)."""
+    _check(backend)
+    if backend == "ref":
+        return _ref.adc_ref(lut, codes)
+    return _pq_adc_kernel(lut, codes)
 
 
 def fused_hop(chunk_words: torch.Tensor, frontier_ids: torch.Tensor,

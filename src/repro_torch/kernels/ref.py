@@ -90,19 +90,70 @@ def pq_lut_ref(queries: torch.Tensor, centroids: torch.Tensor, *,
 
 
 def sum_in_order(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis left to right, the order in which the
-    reference's XLA:CPU reduction adds the m LUT entries. A pairwise sum
-    rounds differently, and with int8 LUTs (sums of multiples of one step)
-    that turns exact ties between neighbours into orderings that differ
-    from the reference's. On the CPU, cumsum adds strictly in order."""
-    return torch.cumsum(x, dim=-1)[..., -1]
+    """Sum over the last axis. On the CPU the m entries are added left to
+    right in float32, the order of the reference's XLA:CPU reduction: a
+    pairwise sum rounds differently, and so does `cumsum`, which on the CPU
+    carries a float64 accumulator; with int8 LUTs (sums of multiples of one
+    step) that turns exact ties between neighbours into orderings that
+    differ from the reference's. On the card no reference order applies,
+    and one reduction replaces the m-1 elementwise adds."""
+    if x.is_cuda:
+        return x.sum(-1)
+    acc = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
 
 
-def pq_adc_ref(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """lut (m, ks) f32, codes (..., m) int -> (...,) f32 (gather semantics)."""
-    m, ks = lut.shape
+def expand_rows_ref(chunk_words: torch.Tensor, frontier_ids: torch.Tensor,
+                    queries: torch.Tensor, layout: ChunkLayout, *,
+                    metric: str):
+    """The part of a hop that needs only the chunk rows, in either mode.
+
+    chunk_words (N, stride/4) int32; frontier_ids (nq, w) int32 (-1 pads);
+    queries (nq, d). Returns (exact (nq, w) f32, nbr_ids (nq, w, R) i32,
+    codes (nq, w, R, m) i32 or None in diskann mode, nvalid (nq, w, R)
+    bool). Invalid frontier rows get +inf and invalid slots id -1.
+    """
+    safe = frontier_ids.long().clamp(0, chunk_words.shape[0] - 1)
+    rows = chunk_words[safe]                              # (nq, w, S)
+    vec, _, ids, codes = parse_chunks_words(rows, layout)
+    fvalid = frontier_ids >= 0
+    q = queries.float()[:, None, :]
+    if metric == "mips":
+        exact = -(vec * q).sum(-1)
+    else:
+        diff = vec - q
+        exact = (diff * diff).sum(-1)
+    exact = torch.where(fvalid, exact, torch.inf)
+    nvalid = (ids >= 0) & fvalid[:, :, None]
+    return exact, torch.where(nvalid, ids, -1), codes, nvalid
+
+
+def adc_ref(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """lut (nq, m, ks) or (m, ks) f32, codes (n, m) int -> (nq, n) or (n,)
+    f32 (gather semantics), each sum taken by `sum_in_order`."""
+    squeeze = lut.ndim == 2
+    lut = lut[None] if squeeze else lut
+    nq, m, ks = lut.shape
     idx = codes.long() + torch.arange(m, device=lut.device) * ks
-    return sum_in_order(lut.reshape(-1)[idx])
+    out = sum_in_order(lut.reshape(nq, m * ks)[:, idx])
+    return out[0] if squeeze else out
+
+
+def pq_adc_q8_ref(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """int8 ADC with the reference recipe: the LUT quantized per query
+    (`quantize_lut`), its entries summed exactly in int32, and the sum
+    rescaled once by scale/127. lut (nq, m, ks) or (m, ks) f32, codes
+    (n, m) int -> (nq, n) or (n,) f32."""
+    squeeze = lut.ndim == 2
+    lut = lut[None] if squeeze else lut
+    nq, m, ks = lut.shape
+    lut_q8, scale = quantize_lut(lut)
+    idx = codes.long() + torch.arange(m, device=lut.device) * ks
+    acc = lut_q8.reshape(nq, m * ks)[:, idx].sum(-1, dtype=torch.int32)
+    out = acc.float() * (scale / 127.0)[:, None]
+    return out[0] if squeeze else out
 
 
 def fused_hop_ref(chunk_words: torch.Tensor, frontier_ids: torch.Tensor,
@@ -127,24 +178,12 @@ def fused_hop_ref(chunk_words: torch.Tensor, frontier_ids: torch.Tensor,
                          f"got {adc_dtype!r}")
     nq, w = frontier_ids.shape
     R, m, ks = layout.R, layout.pq_m, lut.shape[-1]
-    safe = frontier_ids.long().clamp(0, chunk_words.shape[0] - 1)
-    rows = chunk_words[safe]                              # (nq, w, S)
-    vec, _, ids, codes = parse_chunks_words(rows, layout)
-    fvalid = frontier_ids >= 0
-    q = queries.float()[:, None, :]
-    if metric == "mips":
-        exact = -(vec * q).sum(-1)
-    else:
-        diff = vec - q
-        exact = (diff * diff).sum(-1)
-    exact = torch.where(fvalid, exact, torch.inf)
-    nvalid = (ids >= 0) & fvalid[:, :, None]
+    exact, ids, codes, nvalid = expand_rows_ref(
+        chunk_words, frontier_ids, queries, layout, metric=metric)
     flat = lut.reshape(nq, 1, 1, m * ks)
     idx = codes.long() + torch.arange(m, device=lut.device) * ks
     d = sum_in_order(torch.gather(flat.expand(nq, w, R, m * ks), 3, idx))
-    d = torch.where(nvalid, d, torch.inf)
-    ids = torch.where(nvalid, ids, -1)
-    return exact, ids, d
+    return exact, ids, torch.where(nvalid, d, torch.inf)
 
 
 def rerank_ref(queries: torch.Tensor, cand: torch.Tensor, *,

@@ -20,14 +20,23 @@ from repro_torch.core.chunk_layout import ChunkLayout, pack_chunks_device, \
 from repro_torch.core.vamana import random_regular_graph
 
 
-@pytest.fixture(scope="module")
-def indices(small_corpus, built_graph, pq_artifacts):
+def _index_pair(small_corpus, built_graph, pq_artifacts, mode):
     base, _, _ = small_corpus
     cents, codes = pq_artifacts
-    jidx, jlay = jdi.from_arrays(base, built_graph, cents, codes)
-    tidx, tlay = tdi.from_arrays(base, built_graph, cents, codes,
+    jidx, jlay = jdi.from_arrays(base, built_graph, cents, codes, mode=mode)
+    tidx, tlay = tdi.from_arrays(base, built_graph, cents, codes, mode=mode,
                                  device="cpu")
     return jidx, jlay, tidx, tlay
+
+
+@pytest.fixture(scope="module")
+def indices(small_corpus, built_graph, pq_artifacts):
+    return _index_pair(small_corpus, built_graph, pq_artifacts, "aisaq")
+
+
+@pytest.fixture(scope="module")
+def diskann_indices(small_corpus, built_graph, pq_artifacts):
+    return _index_pair(small_corpus, built_graph, pq_artifacts, "diskann")
 
 
 def _same_index(tidx, jidx):
@@ -41,10 +50,15 @@ def _same_layout(tlay, jlay):
     assert tlay.device_stride == jlay.device_stride
 
 
+@pytest.mark.parametrize("mode", ["aisaq", "diskann"])
 @pytest.mark.parametrize("adc", ["f32", "int8"])
-def test_beam_search_matches_jax(indices, small_corpus, adc):
+def test_beam_search_matches_jax(request, small_corpus, mode, adc):
+    """Both placements, under the same limits. diskann mode ignores
+    adc_dtype (its ADC reads the resident code table in f32), in the
+    reference and in the port."""
     base, q, gt = small_corpus
-    jidx, jlay, tidx, tlay = indices
+    jidx, jlay, tidx, tlay = request.getfixturevalue(
+        "indices" if mode == "aisaq" else "diskann_indices")
     jids, jd, jhops = jdi.beam_search_device(
         jidx, jnp.asarray(q), k=10, L=40, layout=jlay, metric="l2",
         backend="ref", adc_dtype=adc)
@@ -132,17 +146,6 @@ def test_fast_tier_residency_invariant(small_corpus, built_graph,
     idx_h, _ = tdi.from_arrays(base[:half], g, cents, codes[:half],
                                device="cpu")
     assert idx_h.fast_tier_bytes(1, 40) == idx_a.fast_tier_bytes(1, 40)
-
-
-def test_diskann_search_is_not_ported(small_corpus, built_graph,
-                                      pq_artifacts):
-    base, q, _ = small_corpus
-    cents, codes = pq_artifacts
-    idx, lay = tdi.from_arrays(base, built_graph, cents, codes,
-                               mode="diskann", device="cpu")
-    with pytest.raises(NotImplementedError, match="diskann"):
-        tdi.beam_search_device(idx, torch.from_numpy(q), k=10, L=40,
-                               layout=lay)
 
 
 @pytest.mark.parametrize("dt,mode,R,m,dim", [

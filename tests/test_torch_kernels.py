@@ -16,6 +16,7 @@ from repro.kernels.chunk_adc import quantize_lut as jquantize_lut
 from repro_torch.core.chunk_layout import ChunkLayout
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.chunk_adc import fused_hop as fused_hop_wrapper
+from repro_torch.kernels.pq_adc import pq_adc_q8
 from repro_torch.kernels.pq_lut import pq_lut as pq_lut_wrapper
 from repro_torch.kernels.rerank import rerank as rerank_wrapper
 
@@ -137,7 +138,7 @@ def test_pq_adc_ref_matches_jax():
     lut = rng.random((16, 256)).astype(np.float32)
     codes = rng.integers(0, 256, (300, 16)).astype(np.uint8)
     np.testing.assert_allclose(
-        ref.pq_adc_ref(_t(lut), _t(codes)).numpy(),
+        ref.adc_ref(_t(lut), _t(codes)).numpy(),
         np.asarray(jref.pq_adc_ref(jnp.asarray(lut), jnp.asarray(codes))),
         rtol=1e-5, atol=1e-4)
 
@@ -210,5 +211,8 @@ def test_launch_counts_untouched_on_cpu():
     lut = ops.build_lut(_t(qs), _t(cents))
     ops.fused_hop(_t(words), _t(fids), lut, _t(qs), layout=lay)
     ops.rerank(_t(qs), _t(qs))
+    codes = _t(np.zeros((5, 8), dtype=np.uint8))
+    ops.adc(lut, codes)
+    pq_adc_q8(lut, codes)
     assert set(_build.launch_counts) == set(_build.KERNELS)
     assert all(v == 0 for v in _build.launch_counts.values())
