@@ -8,13 +8,20 @@ non-zero):
   1. environment: card name and power limit, torch/CUDA versions, nvcc build
      of `src/repro_torch/kernels/csrc/aisaq_kernels.cu`;
   2. kernel parity: every CUDA kernel against its plain PyTorch version on
-     the card, at SIFT1M widths (f32, l2) and SIFT1B widths (u8, mips), and
-     the bulk ADC (f32 and int8 LUT, u8 and i32 codes, m = 10, 16, 128);
+     the card, at SIFT1M widths (f32, l2; batches of 1, 64 and 256),
+     SIFT1B widths (u8, mips), KILT-E5-22M widths (d=1024, R=69, mips) and
+     an m=80 layout whose last LUT slab is short, each with a query whose
+     frontier is all -1; the int8 hop bit-equal to int32 sums of
+     `ref.quantize_lut`'s codes; the hop's shared-memory plan and
+     occupancy; and the bulk ADC (f32 and int8 LUT, u8 and i32 codes,
+     m = 10, 16, 128);
   3. the main path: a 10k-vector SIFT1M-width index (Vamana graph, PQ
      trained on the card, chunk table packed on the card) served through
      `ServingEngine` + `make_device_search_fn(L=256, rerank=100)`, f32 and
      int8; recall@10 against brute-force groundtruth, agreement with the plain
-     (`backend="ref"`) search, and every kernel's launch count;
+     (`backend="ref"`) search, and every kernel's launch count; then the
+     `[hop]` lines: the fused hop's time with one LUT and with the LUT
+     rotated out of L2, its registers, shared memory and resident CTAs;
   4. DiskANN placement: the same 10k vectors, graph and codes re-packed
      with mode="diskann" and served the same way; recall@10, agreement with
      phase 3, fast-tier bytes of both placements at batch 64, the time of
@@ -22,7 +29,8 @@ non-zero):
   5. deployment size: a 1M-node SIFT1M-width chunk table (7.94 GB) on the
      card over the random R-regular start graph, served in batches of 64
      and 256; QPS, hops, time per hop, fused_hop bytes/s, peak memory,
-     and one profiled search: device busy time by kernel, idle share;
+     and one profiled search each for f32 and int8: device busy time by
+     kernel, idle share, device ops per hop;
   6. recommender retrieval: SASRec at full width (embed_dim 50, seq_len 50,
      2 blocks) against 1,000,000 candidates (retrieval_cand), PQ m=10
      trained and encoded on the card, 64 one-user requests through
@@ -74,6 +82,7 @@ RERANK = 100
 SEARCH_KERNELS = ("fused_hop_f32", "fused_hop_int8", "pq_lut", "rerank")
 TOL_DIST = 1e-4          # pq_lut / rerank rtol, atol (tests/test_kernels.py)
 TOL_HOP = 2e-6           # fused_hop scaled atol (tests/test_kernels.py)
+HOP_REPEATS = 20         # repeats of each parity hop that must match bits
 # PQ of the SASRec candidates: m=10 (dsub 5), 6 Lloyd iterations, as
 # benchmarks/bench_device.py recsys_pq_retrieval trains them
 RECSYS_PQ_M = 10
@@ -271,17 +280,86 @@ def phase_env():
         load_s=f"{time.perf_counter() - t0:.3f}")
 
 
-def phase_parity():
-    """Every kernel against its plain version at the two Table-1 widths.
-    Returns the max abs error of each kernel at SIFT1M widths."""
+def hop_q8_exact(words, fids, lut, q, lay, metric):
+    """The int8 hop's nbr_d rebuilt from `ref.quantize_lut`'s codes: int32
+    sums on the card, times scale/127 in float32, +inf where invalid."""
     import torch
-    from repro_torch.configs import SIFT1B, SIFT1M
+    from repro_torch.kernels import ref
+    lut_q8, scale = ref.quantize_lut(lut)
+    _, _, codes, nvalid = ref.expand_rows_ref(words, fids, q, lay,
+                                              metric=metric)
+    nq, w, R, m = codes.shape
+    ks = lut.shape[-1]
+    idx = codes.long() + torch.arange(m, device=lut.device) * ks
+    flat = lut_q8.reshape(nq, 1, 1, m * ks).expand(nq, w, R, m * ks)
+    acc = torch.gather(flat, 3, idx).sum(-1, dtype=torch.int32)
+    # scale / 127 as an IEEE quotient, as the reference's float32 divide:
+    # PyTorch's CUDA division by a Python scalar multiplies by its
+    # reciprocal instead, which can differ in the last bit
+    s127 = scale / torch.full_like(scale, 127.0)
+    d = acc.float() * s127[:, None, None]
+    return torch.where(nvalid, d, torch.inf)
+
+
+def hop_parity(words, lay, lut, q, fids, metric):
+    """fused_hop f32 and int8 against the plain version, and repeated
+    HOP_REPEATS times to the same bits; the int8 nbr_d also bit-equal to
+    `hop_q8_exact` and within the int8 bound of f32. Returns the max abs
+    error of each dtype."""
+    import torch
     from repro_torch.kernels import ops
+    errs = {}
+    args = (words, fids, lut, q)
+    for adc in ("f32", "int8"):
+        kw = dict(layout=lay, metric=metric, adc_dtype=adc)
+        got = ops.fused_hop(*args, **kw)
+        errs[adc] = hop_err(got, ops.fused_hop(*args, backend="ref", **kw))
+        for _ in range(HOP_REPEATS):       # the same bits every time
+            require(all(torch.equal(a, b) for a, b in
+                        zip(ops.fused_hop(*args, **kw), got)),
+                    f"fused_hop {adc} is not deterministic")
+        if adc == "int8":
+            want = hop_q8_exact(*args, lay, metric)
+            if not torch.equal(got[2], want):
+                fin = torch.isfinite(want)
+                diff = (got[2][fin] - want[fin]).abs()
+                step = float(lut.abs().amax() / 127)
+                raise AssertionError(
+                    f"int8 hop differs from the int32 sums of "
+                    f"ref.quantize_lut's codes: {int((diff > 0).sum())} of "
+                    f"{diff.numel()} differ, max {float(diff.max())}, "
+                    f"max rel {float((diff / want[fin].abs()).max())}, "
+                    f"quantization step ~{step}")
+            _, _, d32 = ops.fused_hop(*args, backend="ref", layout=lay,
+                                      metric=metric)
+            fin = torch.isfinite(d32)
+            bound = lay.pq_m * float(lut.abs().max()) / 127
+            qerr = float((got[2][fin] - d32[fin]).abs().max())
+            require(qerr <= bound + 1e-3,
+                    f"int8 hop err {qerr} > bound {bound}")
+    return errs
+
+
+def phase_parity():
+    """Every kernel against its plain version at the Table-1 widths
+    (SIFT1M, SIFT1B, KILT-E5-22M), batches of 1, 64 and 256 queries, and
+    an m whose last LUT slab is short. Every frontier has one query whose
+    row is all -1. Returns the max abs error of each kernel at SIFT1M
+    widths, batch 64."""
+    import torch
+    from repro_torch.configs import KILT_E5_22M, SIFT1B, SIFT1M
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.chunk_adc import hop_occupancy
     dev = torch.device("cuda")
     errs = {}
-    for cfg, metric in ((SIFT1M, "l2"), (SIFT1B, "mips")):
+    # m=80: slabs of 32, 32 and 16 subspaces (ring reuse and a short slab)
+    short = SIFT1M.scaled(name="short-slab", dim=160, R=20, pq_m=80)
+    cases = ((SIFT1M, "l2", 64), (SIFT1B, "mips", 64),
+             (KILT_E5_22M, "mips", 64), (SIFT1M, "l2", 1),
+             (SIFT1M, "l2", 256), (short, "l2", 64))
+    for cfg, metric, nq in cases:
         rng = np.random.default_rng(7)
-        nq, w, N, ks = 64, cfg.beamwidth, 4096, cfg.pq_ks
+        w, N, ks = cfg.beamwidth, 4096, cfg.pq_ks
         d, m = cfg.dim, cfg.pq_m
         lay, words = random_table(N, d, cfg.data_dtype, cfg.R, m, dev, 11)
         q = torch.from_numpy(rng.normal(size=(nq, d)).astype(np.float32)) \
@@ -294,22 +372,11 @@ def phase_parity():
                           ops.build_lut(q, cents, metric=metric,
                                         backend="ref"))
         lut = ops.build_lut(q, cents, metric=metric, backend="ref")
-        fids = torch.from_numpy(rng.integers(-1, N, (nq, w))
-                                .astype(np.int32)).to(dev)
-        hop = {}
-        for adc in ("f32", "int8"):
-            args = (words, fids, lut, q)
-            kw = dict(layout=lay, metric=metric, adc_dtype=adc)
-            got = ops.fused_hop(*args, **kw)
-            hop[adc] = hop_err(got, ops.fused_hop(*args, backend="ref", **kw))
-            if adc == "int8":      # quantization error bound against f32
-                _, _, d32 = ops.fused_hop(*args, backend="ref", layout=lay,
-                                          metric=metric)
-                fin = torch.isfinite(d32)
-                bound = m * float(lut.abs().max()) / 127
-                qerr = float((got[2][fin] - d32[fin]).abs().max())
-                require(qerr <= bound + 1e-3,
-                        f"int8 hop err {qerr} > bound {bound}")
+        fids = rng.integers(-1, N, (nq, w)).astype(np.int32)
+        if nq > 1:
+            fids[0] = -1                   # a query with no frontier row
+        fids = torch.from_numpy(fids).to(dev)
+        hop = hop_parity(words, lay, lut, q, fids, metric)
         # candidates drawn like the index's own vectors (u8 values in the
         # u8 case), so mips sums do not cancel below the tolerance
         cand = (rng.integers(0, 256, (nq, 100, d)) if cfg.data_dtype == "uint8"
@@ -320,10 +387,14 @@ def phase_parity():
         shared = cand[0]
         close_err(ops.rerank(q, shared, metric=metric),
                   ops.rerank(q, shared, metric=metric, backend="ref"))
-        log("parity", widths=cfg.name, metric=metric, pq_lut_err=e_lut,
+        occ = hop_occupancy(lay, "f32", ks, w)
+        log("parity", widths=cfg.name, metric=metric, nq=nq, R=cfg.R, m=m,
+            d=d, hop_group=occ["group"], hop_slabs=occ["n_slabs"],
+            hop_smem=occ["dynamic_smem"], hop_ctas_per_sm=occ["ctas_per_sm"],
+            hop_clusters=occ["clusters"], pq_lut_err=e_lut,
             fused_hop_f32_err=hop["f32"], fused_hop_int8_err=hop["int8"],
-            rerank_err=e_rr)
-        if cfg is SIFT1M:
+            int8_bit_exact=True, rerank_err=e_rr)
+        if (cfg, nq) == (SIFT1M, 64):
             errs = {"pq_lut": e_lut, "fused_hop_f32": hop["f32"],
                     "fused_hop_int8": hop["int8"], "rerank": e_rr}
     errs.update(adc_parity())
@@ -428,7 +499,7 @@ def kernel_times(idx, lay, queries, nq: int = 64, c: int = 100):
     a serving batch of nq queries, w=4 frontier slots per query on the
     10k table, c rerank candidates per query."""
     import torch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import chunk_adc, ops
     dev = idx.device
     m, ks, dsub = idx.centroids.shape
     d, R, S = lay.dim, lay.R, lay.device_stride
@@ -452,11 +523,25 @@ def kernel_times(idx, lay, queries, nq: int = 64, c: int = 100):
     hop_bytes = (nq * w * S + nq * m * ks * 4 + nq * d * 4 + nq * w * 4
                  + nq * w * 4 + 2 * nq * w * R * 4)
     hop_ops = nq * w * (R * m + 3 * d)
+    # the same calls with the LUT rotated over reps copies (reps x 8.4 MB,
+    # past the 50 MB L2), so each call reads its LUT from HBM as the bound
+    # counts it; the row above keeps PR 12's method (one LUT for all calls,
+    # as in the search loop)
+    luts = [lut.clone() for _ in range(reps)]
     for adc in ("f32", "int8"):
         out[f"fused_hop_{adc}"] = dict(
             ms=device_ms(hop("auto", adc)),
             plain_ms=device_ms(hop("ref", adc)),
             library_ms=None, nbytes=hop_bytes, ops=hop_ops)
+        cold = device_ms([lambda f=f, l=l: ops.fused_hop(
+            idx.chunk_words, f, l, q, layout=lay, adc_dtype=adc)
+            for f, l in zip(fids, luts)])
+        log("hop", adc=adc, nq=nq, w=w,
+            ms=f"{out[f'fused_hop_{adc}']['ms']:.5f}",
+            hbm_cold_ms=f"{cold:.5f}",
+            bound_ms=f"{bound_ms(hop_bytes, hop_ops)[0]:.6f}",
+            **chunk_adc.hop_occupancy(lay, adc, ks, w))
+    del luts
 
     def lut_lib():
         qs = q.reshape(nq, m, dsub).permute(1, 0, 2)        # (m, nq, dsub)
@@ -526,6 +611,7 @@ def phase_deployment():
         note="random R-regular graph: recall is not judged at this size")
     require(table == n * lay.device_stride, "chunk table size")
     qt = torch.from_numpy(queries).cuda()
+    search_ms_64 = {}
     for adc in ("f32", "int8"):
         for nq in (64, 256):
             fn = make_device_search_fn(idx, lay, metric="l2", L=SEARCH_L,
@@ -564,30 +650,35 @@ def phase_deployment():
                 fused_hop_ms=f"{hop_ms:.4f}",
                 fused_hop_GBps=f"{hop_bytes / hop_ms / 1e6:.1f}",
                 hbm_share=f"{hop_bytes / hop_ms * 1e3 / HBM_BYTES_PER_S:.4f}")
-            if (adc, nq) == ("f32", 64):
-                search_ms_64 = t_search * 1e3
+            if nq == 64:
+                search_ms_64[adc] = t_search * 1e3
     log("deploy", peak_device_bytes=torch.cuda.max_memory_allocated())
     # where a hop's time goes: device time by kernel over one profiled
-    # search (batch 64, f32), against the unprofiled wall time of the same
-    # search above (the profiler slows the host, not the device)
+    # search (batch 64, f32 and int8), against the unprofiled wall time of
+    # the same search above (the profiler slows the host, not the device)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, hops = beam_search_device(
-            idx, qt[:64], k=RERANK, L=SEARCH_L, w=cfg.beamwidth,
-            max_hops=cfg.max_hops, layout=lay, metric="l2")
-        torch.cuda.synchronize()
-    rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    log("profile", batch=64, adc="f32", hops=hops,
-        search_ms=f"{search_ms_64:.2f}", device_busy_ms=f"{busy_ms:.3f}",
-        device_idle_share=f"{1 - busy_ms / search_ms_64:.4f}",
-        host_ms_per_hop=f"{(search_ms_64 - busy_ms) / hops:.3f}",
-        device_ops_per_hop=f"{sum(r[2] for r in rows) / hops:.1f}",
-        top=json.dumps([[k[:40], round(t, 4), c] for t, k, c in rows[:10]]))
+    for adc, wall_ms in search_ms_64.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, _, hops = beam_search_device(
+                idx, qt[:64], k=RERANK, L=SEARCH_L, w=cfg.beamwidth,
+                max_hops=cfg.max_hops, layout=lay, metric="l2",
+                adc_dtype=adc)
+            torch.cuda.synchronize()
+        rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA), reverse=True)
+        busy_ms = sum(r[0] for r in rows)
+        hop_ms = sum(t for t, k, _ in rows if "hop_kernel" in k)
+        log("profile", batch=64, adc=adc, hops=hops,
+            search_ms=f"{wall_ms:.2f}", device_busy_ms=f"{busy_ms:.3f}",
+            device_idle_share=f"{1 - busy_ms / wall_ms:.4f}",
+            host_ms_per_hop=f"{(wall_ms - busy_ms) / hops:.3f}",
+            device_ops_per_hop=f"{sum(r[2] for r in rows) / hops:.1f}",
+            fused_hop_device_share=f"{hop_ms / busy_ms:.4f}",
+            top=json.dumps([[k[:40], round(t, 4), c]
+                            for t, k, c in rows[:10]]))
 
 
 def phase_diskann(arrays, aisaq_idx, aisaq_lay, queries, gt, aisaq_ids):

@@ -33,10 +33,9 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # argtypes of each extern "C" launcher; all return a cudaError_t as int
 _SIGNATURES = {
-    "aisaq_fused_hop_f32": [_P, _LL, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I,
-                            _I, _I, _I, _I, _P, _P, _P, _P],
-    "aisaq_fused_hop_int8": [_P, _LL, _I, _P, _I, _I, _P, _P, _I, _I, _P, _I,
-                             _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "aisaq_fused_hop": [_P, _LL, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P, _I,
+                        _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "aisaq_hop_occupancy": [_I, _I, _I, _P],
     "aisaq_pq_lut": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
     "aisaq_rerank": [_P, _I, _P, _LL, _I, _I, _I, _P, _P],
     "aisaq_pq_adc_f32": [_P, _LL, _I, _I, _P, _I, _I, _P, _P],

@@ -13,9 +13,11 @@ from repro.core.chunk_layout import pack_chunks_device
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.chunk_adc import quantize_lut as jquantize_lut
+from repro_torch import configs
 from repro_torch.core.chunk_layout import ChunkLayout
-from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import _build, chunk_adc, ops, ref
 from repro_torch.kernels.chunk_adc import fused_hop as fused_hop_wrapper
+from repro_torch.kernels.chunk_adc import hop_plan
 from repro_torch.kernels.pq_adc import pq_adc_q8
 from repro_torch.kernels.pq_lut import pq_lut as pq_lut_wrapper
 from repro_torch.kernels.rerank import rerank as rerank_wrapper
@@ -90,13 +92,20 @@ def _hop_case(dt, R, m, dim, N=100, nq=2, w=4, seed=0):
     return jlay, ChunkLayout("aisaq", dim, dt, R, m), words, fids, qs, cents
 
 
-@pytest.mark.parametrize("adc", ["f32", "int8"])
-@pytest.mark.parametrize("dt,metric,R,m,dim", [
+# (data dtype, metric, R, pq_m, dim): the sweep of tests/test_kernels.py,
+# SIFT1M widths, and KILT-E5-22M widths (d=1024, R=69, m=128, mips), where
+# w*R = 276 neighbours exceed one thread each and the hop's shared-memory
+# plan is at its largest
+HOP_SHAPES = [
     ("float32", "l2", 8, 8, 32), ("float32", "mips", 24, 16, 64),
     ("uint8", "l2", 12, 8, 48), ("uint8", "l2", 52, 32, 128),
     ("float32", "l2", 20, 12, 48), ("uint8", "mips", 16, 4, 16),
-    ("float32", "l2", 56, 128, 128),
-])
+    ("float32", "l2", 56, 128, 128), ("float32", "mips", 69, 128, 1024),
+]
+
+
+@pytest.mark.parametrize("adc", ["f32", "int8"])
+@pytest.mark.parametrize("dt,metric,R,m,dim", HOP_SHAPES)
 def test_fused_hop_matches_jax(dt, metric, R, m, dim, adc):
     jlay, lay, words, fids, qs, cents = _hop_case(dt, R, m, dim)
     lut = np.asarray(jref.pq_lut_ref(jnp.asarray(qs), jnp.asarray(cents),
@@ -123,6 +132,66 @@ def test_fused_hop_matches_jax(dt, metric, R, m, dim, adc):
         fin = torch.isfinite(d32)
         bound = m * float(np.abs(lut).max()) / 127
         assert float((mine[2][fin] - d32[fin]).abs().max()) <= bound + 1e-3
+
+
+def _configs():
+    return [v for v in vars(configs).values()
+            if isinstance(v, configs.IndexConfig)]
+
+
+def test_index_configs_listed():
+    assert {c.name for c in _configs()} >= {"sift1m", "sift1b",
+                                             "kilt-e5-22m"}
+
+
+@pytest.mark.parametrize("adc", ["f32", "int8"])
+@pytest.mark.parametrize("shape", [
+    *[(c.data_dtype, c.metric, c.R, c.pq_m, c.dim) for c in _configs()],
+    *HOP_SHAPES])
+def test_hop_plan_fits(shape, adc):
+    """The plan fits Hopper's shared memory and holds the chunk row and the
+    staged LUT (f32: two slabs; int8: all m*ks bytes and the CTA's f32
+    share), and its slabs of lanes cover all m subspaces (the last one
+    possibly short)."""
+    dt, _, R, m, dim = shape
+    lay = ChunkLayout("aisaq", dim, dt, R, m)
+    plan = hop_plan(lay, adc_dtype=adc)
+    assert plan.smem_bytes <= 232_448
+    assert plan.smem_bytes == (chunk_adc.HOP_HEADER_BYTES
+                               + lay.device_stride + plan.lut_bytes)
+    assert plan.row_bytes == lay.device_stride
+    # int8: the int8 LUT and a quarter of the f32 LUT (w=4)
+    assert plan.lut_bytes == (m * 256 + m * 256 if adc == "int8"
+                              else 2 * plan.group * 256 * 4)
+    assert 1 <= plan.group <= 32
+    assert (plan.n_slabs - 1) * plan.group < m <= plan.n_slabs * plan.group
+    if m >= 32:
+        assert plan.group == 32        # every lane has a subspace
+
+
+def test_hop_plan_short_last_slab():
+    plan = hop_plan(ChunkLayout("aisaq", 96, "float32", 20, 48))
+    assert (plan.group, plan.n_slabs) == (32, 2)     # 32 + a slab of 16
+
+
+def test_hop_plan_shrinks_slabs_then_raises():
+    # a 172 KB row leaves room for f32 slabs of 16 subspaces, not 32
+    wide = ChunkLayout("aisaq", 42_000, "float32", 32, 128)
+    plan = hop_plan(wide)
+    assert plan.group == 16 and plan.smem_bytes <= 232_448
+    assert plan.n_slabs == 8
+    # int8 stages the whole int8 LUT and a quarter of the f32 one: 64 KB
+    for lay, kw in ((ChunkLayout("aisaq", 60_000, "float32", 56, 128), {}),
+                    (wide, {"adc_dtype": "int8"}),
+                    (ChunkLayout("aisaq", 128, "float32", 129, 128), {}),
+                    (ChunkLayout("aisaq", 128, "float32", 56, 128),
+                     {"ks": 254}),
+                    (ChunkLayout("aisaq", 128, "float32", 56, 128), {"w": 9}),
+                    (ChunkLayout("aisaq", 128, "float32", 56, 128),
+                     {"adc_dtype": "bf16"}),
+                    (ChunkLayout("aisaq", 30, "float32", 8, 6), {})):
+        with pytest.raises(ValueError):
+            hop_plan(lay, **kw)
 
 
 def test_parse_chunks_words_matches_jax():
