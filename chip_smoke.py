@@ -12,9 +12,11 @@ non-zero):
      SIFT1B widths (u8, mips), KILT-E5-22M widths (d=1024, R=69, mips) and
      an m=80 layout whose last LUT slab is short, each with a query whose
      frontier is all -1; the int8 hop bit-equal to int32 sums of
-     `ref.quantize_lut`'s codes; the hop's shared-memory plan and
-     occupancy; and the bulk ADC (f32 and int8 LUT, u8 and i32 codes,
-     m = 10, 16, 128);
+     `ref.quantize_lut`'s codes rescaled by scale * INV127; the hop's
+     shared-memory plan and occupancy; and the bulk ADC at every
+     `ADC_CASES` shape (f32 and int8 LUT, u8 and i32 codes; pq_adc_q8
+     bit-equal to its int32 recomputation), a table at an odd byte offset
+     and an all-zero LUT;
   3. the main path: a 10k-vector SIFT1M-width index (Vamana graph, PQ
      trained on the card, chunk table packed on the card) served through
      `ServingEngine` + `make_device_search_fn(L=256, rerank=100)`, f32 and
@@ -38,7 +40,11 @@ non-zero):
      agreement with the plain path, overlap with exact top-100, launches,
      and the path's own LUTs and ADC distances against their plain versions;
   7. bulk ADC: 8 queries against 1,000,000 codes at m=16 through `ops.adc`
-     and `pq_adc_q8`; the int8 error bound and top-10 overlap.
+     and `pq_adc_q8`; the int8 error bound and top-10 overlap;
+  8. the `[adc]` lines: for the retrieval, bulk and wide shapes and each
+     LUT dtype, `adc_plan`'s plan, registers, spills, resident CTAs, the
+     time at the shape and at one tile a CTA (mostly the LUT staging),
+     and one device op a call.
 Each path's launch counts are reset just before it and read just after.
 Then the card line, the `kernels` JSON line (times at each kernel's path
 shapes) and the result line.
@@ -88,12 +94,16 @@ HOP_REPEATS = 20         # repeats of each parity hop that must match bits
 RECSYS_PQ_M = 10
 RECSYS_PQ_ITERS = 6
 TOL_ADC = (1e-5, 1e-4)   # pq_adc rtol, atol (tests/test_kernels.py)
-TOL_Q8 = 1e-6            # pq_adc_q8 err / max|out|: integer sums agree
 # (nq, n, m) of the ADC parity cases: the retrieval shape (one SASRec user
-# against 1M candidates, m=10), the bulk-scoring shape (8 queries, m=16)
-# and a wide LUT that does not fit in shared memory (m=128)
-ADC_CASES = ((1, 1_000_000, 10), (8, 1_000_000, 16), (4, 50_000, 128))
-RETRIEVAL_SHAPE, BULK_SHAPE = ADC_CASES[:2]
+# against 1M candidates, m=10), the bulk-scoring shape (8 queries, m=16),
+# a wide LUT (m=128: one f32 query a group, all four int8 queries), n not a
+# multiple of the tile, n below one tile (and n = 1), 20 queries (several
+# groups), m=50, and LUTs too wide for shared memory (f32 at m=256, both
+# dtypes at m=1024: the global-LUT path). Every case runs u8 and i32 codes.
+ADC_CASES = ((1, 1_000_000, 10), (8, 1_000_000, 16), (4, 50_000, 128),
+             (2, 100_003, 16), (3, 100, 16), (2, 1, 10), (20, 30_000, 16),
+             (4, 20_000, 50), (1, 5_000, 256), (2, 3_000, 1024))
+RETRIEVAL_SHAPE, BULK_SHAPE, WIDE_SHAPE = ADC_CASES[:3]
 
 
 def log(phase: str, **kv) -> None:
@@ -201,47 +211,79 @@ def adc_err(got, want) -> float:
 
 
 def q8_err(got, want) -> float:
-    """pq_adc_q8 output against its plain version: max abs error; raises
-    past TOL_Q8 * max|want|."""
-    err = float((got - want).abs().max())
-    require(err <= TOL_Q8 * float(want.abs().max()),
-            f"pq_adc_q8 err {err} > {TOL_Q8} * max|out|")
-    return err
+    """pq_adc_q8 output against `ref.pq_adc_q8_ref` (int32 sums of
+    `ref.quantize_lut`'s codes, rescaled by scale * INV127): bit-equal, or
+    raises. Returns the max abs error (0.0)."""
+    import torch
+    if not torch.equal(got, want):
+        diff = (got - want).abs()
+        raise AssertionError(
+            f"pq_adc_q8 differs from the int32 recomputation: "
+            f"{int((diff > 0).sum())} of {diff.numel()} differ, max "
+            f"{float(diff.max())}")
+    return 0.0
 
 
 def adc_parity():
     """pq_adc and pq_adc_q8 against their plain versions on the card, u8
-    and i32 codes. Returns the max abs error of pq_adc at the retrieval
-    shape and of pq_adc_q8 at the bulk shape, u8 codes (where each runs)."""
+    and i32 codes, at every ADC_CASES shape; a 2-D LUT gives row 0; a
+    table at an odd byte offset (codes[1:], read with plain loads); an
+    all-zero LUT for pq_adc_q8 (the 1e-20 clamp). Returns the max abs error
+    of pq_adc at the retrieval shape and of pq_adc_q8 at the bulk shape, u8
+    codes (where each runs)."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.pq_adc import pq_adc, pq_adc_q8
+    from repro_torch.kernels.pq_adc import adc_plan, pq_adc, pq_adc_q8
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
     errs = {}
+
+    def check(lut, codes, what):
+        got, want = pq_adc(lut, codes), ref.adc_ref(lut, codes)
+        err = adc_err(got, want)
+        q8 = pq_adc_q8(lut, codes)
+        err_q8 = q8_err(q8, ref.pq_adc_q8_ref(lut, codes))
+        bound = lut.shape[1] * float(lut.abs().max()) / 127
+        require(float((q8 - want).abs().max()) <= bound + 1e-3,
+                f"pq_adc_q8 {what}: past the int8 bound {bound}")
+        require(torch.equal(pq_adc(lut[0], codes), got[0])
+                and torch.equal(pq_adc_q8(lut[0], codes), q8[0]),
+                f"{what}: a 2-D LUT does not give the first query's row")
+        return err, err_q8
+
     for nq, n, m in ADC_CASES:
         lut = torch.rand((nq, m, 256), generator=g, device=dev) * 3
         codes8 = torch.randint(0, 256, (n, m), generator=g, device=dev,
                                dtype=torch.uint8)
         for codes in (codes8, codes8.to(torch.int32)):
-            got, want = pq_adc(lut, codes), ref.adc_ref(lut, codes)
-            err = adc_err(got, want)
-            q8 = pq_adc_q8(lut, codes)
-            err_q8 = q8_err(q8, ref.pq_adc_q8_ref(lut, codes))
-            bound = m * float(lut.abs().max()) / 127
-            require(float((q8 - want).abs().max()) <= bound + 1e-3,
-                    f"pq_adc_q8 {nq}x{n}x{m}: past the int8 bound {bound}")
-            require(torch.equal(pq_adc(lut[0], codes), got[0])
-                    and torch.equal(pq_adc_q8(lut[0], codes), q8[0]),
-                    "2-D LUT does not give the first query's row")
+            err, err_q8 = check(lut, codes, f"{nq}x{n}x{m}")
             if codes.dtype == torch.uint8:
                 if (nq, n, m) == RETRIEVAL_SHAPE:
                     errs["pq_adc"] = err
                 if (nq, n, m) == BULK_SHAPE:
                     errs["pq_adc_q8"] = err_q8
+            plans = {dt: adc_plan(nq, m, 256, codes.dtype, dt)
+                     for dt in ("f32", "int8")}
             log("parity", kernel="pq_adc", nq=nq, n=n, m=m,
                 codes=str(codes.dtype).split(".")[1],
+                groups=f"{plans['f32'].n_groups}/{plans['int8'].n_groups}",
+                global_lut=f"{plans['f32'].global_lut}/"
+                           f"{plans['int8'].global_lut}",
                 pq_adc_err=err, pq_adc_q8_err=err_q8)
+    # a table that does not start 16-byte aligned (m=10, one row in)
+    lut = torch.rand((3, 10, 256), generator=g, device=dev) * 3
+    codes = torch.randint(0, 256, (40_001, 10), generator=g, device=dev,
+                          dtype=torch.uint8)[1:]
+    require(codes.data_ptr() % 16 != 0, "codes[1:] should be misaligned")
+    err, err_q8 = check(lut, codes, "codes[1:]")
+    # an all-zero LUT: scale 0, clamped to 1e-20, every distance 0
+    zero = torch.zeros((2, 16, 256), device=dev)
+    q8 = pq_adc_q8(zero, torch.randint(0, 256, (5_000, 16), generator=g,
+                                       device=dev, dtype=torch.uint8))
+    require(bool((q8 == 0).all()), "pq_adc_q8 of an all-zero LUT is not 0")
+    log("parity", kernel="pq_adc", note="odd byte offset and zero LUT",
+        offset=codes.data_ptr() % 16, pq_adc_err=err, pq_adc_q8_err=err_q8,
+        zero_lut_q8_max=float(q8.abs().max()))
     return errs
 
 
@@ -282,7 +324,8 @@ def phase_env():
 
 def hop_q8_exact(words, fids, lut, q, lay, metric):
     """The int8 hop's nbr_d rebuilt from `ref.quantize_lut`'s codes: int32
-    sums on the card, times scale/127 in float32, +inf where invalid."""
+    sums on the card, times scale * INV127 in float32, +inf where
+    invalid."""
     import torch
     from repro_torch.kernels import ref
     lut_q8, scale = ref.quantize_lut(lut)
@@ -293,11 +336,10 @@ def hop_q8_exact(words, fids, lut, q, lay, metric):
     idx = codes.long() + torch.arange(m, device=lut.device) * ks
     flat = lut_q8.reshape(nq, 1, 1, m * ks).expand(nq, w, R, m * ks)
     acc = torch.gather(flat, 3, idx).sum(-1, dtype=torch.int32)
-    # scale / 127 as an IEEE quotient, as the reference's float32 divide:
-    # PyTorch's CUDA division by a Python scalar multiplies by its
-    # reciprocal instead, which can differ in the last bit
-    s127 = scale / torch.full_like(scale, 127.0)
-    d = acc.float() * s127[:, None, None]
+    # scale times float32(1/127), as the reference rescales under jax.jit
+    # (XLA multiplies by the rounded reciprocal; a true quotient differs in
+    # the last bit on ~4% of scales)
+    d = acc.float() * ref.rescale127(scale)[:, None, None]
     return torch.where(nvalid, d, torch.inf)
 
 
@@ -795,6 +837,100 @@ def adc_times(luts, codes, n_copies: int):
             library_ms=None)}
 
 
+def device_ops(fn) -> int:
+    """Device operations (kernels, copies, sets) of one call of fn, from
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+ADC_REPORT_SHAPES = (("retrieval", RETRIEVAL_SHAPE), ("bulk", BULK_SHAPE),
+                     ("wide", WIDE_SHAPE))
+
+
+def adc_device_ops():
+    """Device ops of one pq_adc and one pq_adc_q8 call at each `[adc]`
+    shape, from torch.profiler; each must be 1 (the wrappers run no torch
+    op). Run before any other profiler session of the process: after
+    earlier sessions the profiler was seen to drop these launches."""
+    import torch
+    from repro_torch.kernels.pq_adc import pq_adc, pq_adc_q8
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    ops = {}
+    for label, (nq, n, m) in ADC_REPORT_SHAPES:
+        lut = torch.rand((nq, m, 256), generator=g, device=dev) * 3
+        codes = torch.randint(0, 256, (n, m), generator=g, device=dev,
+                              dtype=torch.uint8)
+        for dt, fn in (("f32", pq_adc), ("int8", pq_adc_q8)):
+            fn(lut, codes)                                  # built, warm
+            ops[label, dt] = device_ops(lambda: fn(lut, codes))
+            require(ops[label, dt] == 1,
+                    f"{fn.__name__} at the {label} shape ran "
+                    f"{ops[label, dt]} device ops, not 1")
+    log("adc", note="device ops a call", ops=json.dumps(
+        {f"{k[0]}/{k[1]}": v for k, v in ops.items()}))
+    return ops
+
+
+def phase_adc_report(retrieval_times, bulk_times, ops):
+    """The `[adc]` lines: for the retrieval, bulk and wide shapes and each
+    LUT dtype, `adc_plan`'s plan, the card's registers, spill bytes and
+    resident CTAs an SM, the time at the shape (retrieval and bulk from
+    their phases, the wide one here, codes rotated out of L2 alike), the
+    time at n = one tile a CTA, which is mostly the LUT staging, and the
+    device ops a call that `adc_device_ops` counted."""
+    import torch
+    from repro_torch.kernels.pq_adc import adc_occupancy, pq_adc, pq_adc_q8
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    fns = {"f32": pq_adc, "int8": pq_adc_q8}
+    names = {"f32": "pq_adc", "int8": "pq_adc_q8"}
+    known_times = {"retrieval": retrieval_times, "bulk": bulk_times}
+    for label, (nq, n, m) in ADC_REPORT_SHAPES:
+        known = known_times.get(label)
+        luts = torch.rand((8, nq, m, 256), generator=g, device=dev) * 3
+        codes = torch.randint(0, 256, (n, m), generator=g, device=dev,
+                              dtype=torch.uint8)
+        copies = [codes.clone() for _ in range(8)] if known is None else []
+        for dt, fn in fns.items():
+            occ = adc_occupancy(nq, m, 256, torch.uint8, dt)
+            if known is not None:
+                ms = known[names[dt]]["ms"]
+            else:
+                ms = device_ms([lambda l=l, c=c: fn(l, c)
+                                for l, c in zip(luts, copies)])
+            n_one = occ["clusters"] * occ["cluster_ctas"] * occ["tile_rows"]
+            one = torch.randint(0, 256, (n_one, m), generator=g, device=dev,
+                                dtype=torch.uint8)
+            one_ms = device_ms([lambda l=l: fn(l, one) for l in luts])
+            b, _ = bound_ms(*adc_bytes_ops(nq, n, m))
+            log("adc", shape=label, lut=dt, nq=nq, n=n, m=m,
+                ms=f"{ms:.5f}", bound_ms=f"{b:.6f}",
+                pct_of_bound=f"{100 * b / ms:.1f}",
+                one_tile_n=n_one, one_tile_ms=f"{one_ms:.5f}",
+                device_ops=ops[label, dt], code_passes=occ["n_groups"],
+                group=occ["group"], group_pad=occ["group_pad"],
+                tile_rows=occ["tile_rows"], depth=occ["depth"],
+                smem=occ["smem_bytes"], global_lut=occ["global_lut"],
+                registers=occ["registers"], local_bytes=occ["local_bytes"],
+                ctas_per_sm=occ["ctas_per_sm"], sms=occ["sms"],
+                cluster=occ["cluster_ctas"], clusters=occ["clusters"])
+            if label == "bulk":
+                require(occ["n_groups"] == 1,
+                        f"{names[dt]} reads the bulk codes "
+                        f"{occ['n_groups']} times")
+        del copies
+
+
 def phase_recsys(n_requests: int = 64, k: int = 100, rerank_mult: int = 4):
     """SASRec at full width against the 1M-item catalogue (retrieval_cand):
     random parameters from a seeded generator on the card, PQ (m=10, 6
@@ -993,6 +1129,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_env()
+    adc_ops = adc_device_ops()
     errs = phase_parity()
     idx, lay, queries, gt, arrays = build_index_10k()
     launches, served = phase_main_path(idx, lay, queries, gt)
@@ -1005,6 +1142,8 @@ def main() -> int:
     rec_launches, adc, rec_errs = phase_recsys()
     torch.cuda.empty_cache()
     bulk_launches, bulk, bulk_errs = phase_bulk_adc()
+    torch.cuda.empty_cache()
+    phase_adc_report(adc, bulk, adc_ops)
     # pq_lut runs on the search and the retrieval paths: its row keeps the
     # search shape's times and takes the worse error of the two paths.
     # pq_adc's row is at the retrieval shape, pq_adc_q8's at the bulk

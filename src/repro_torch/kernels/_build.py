@@ -38,8 +38,10 @@ _SIGNATURES = {
     "aisaq_hop_occupancy": [_I, _I, _I, _P],
     "aisaq_pq_lut": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
     "aisaq_rerank": [_P, _I, _P, _LL, _I, _I, _I, _P, _P],
-    "aisaq_pq_adc_f32": [_P, _LL, _I, _I, _P, _I, _I, _P, _P],
-    "aisaq_pq_adc_int8": [_P, _LL, _I, _I, _P, _P, _I, _I, _P, _P],
+    "aisaq_pq_adc": [_P, _LL, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _P, _P],
+    "aisaq_adc_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
 }
 
 KERNELS = ("fused_hop_f32", "fused_hop_int8", "pq_lut", "rerank", "pq_adc",

@@ -98,7 +98,7 @@ def fused_hop(chunk_words: torch.Tensor, frontier_ids: torch.Tensor,
     CUDA tensors launch the kernel, once for either adc_dtype; CPU tensors
     take `ref.fused_hop_ref`. adc_dtype="int8" quantizes the LUT per query
     inside the kernel (the recipe of `ref.quantize_lut`) and sums int8
-    entries in int32 before one rescale by scale/127.
+    entries in int32 before one rescale by scale * INV127 (`ref.INV127`).
     """
     if layout.mode != "aisaq":
         raise NotImplementedError("fused_hop needs inline codes (aisaq mode)")

@@ -85,8 +85,11 @@ __device__ __forceinline__ int warp_sum(int v) {
 // cluster with 16-byte stores. The whole int8 LUT (m*ks B, 32 KB at SIFT1M
 // widths) then sits in each CTA: no ring, and each SM takes in a quarter
 // of the f32 path's LUT bytes. Sums are exact in int32, rescaled once by
-// s / 127 (an IEEE quotient). The int8 hop reads the same f32 LUT bytes
-// from global memory as the f32 hop.
+// s * kInv127f, the float32 reciprocal of 127: the reference's `scale /
+// 127.0` runs under jax.jit, where XLA multiplies by that rounded
+// reciprocal (a true quotient differs in the last bit on ~4% of scales).
+// The int8 hop reads the same f32 LUT bytes from global memory as the f32
+// hop.
 //
 // Lookups: consumer warp k owns neighbours k, k+8, ..., lanes over G
 // subspaces at a time. A lane reads its code byte from the staged row (the
@@ -206,6 +209,10 @@ __device__ __forceinline__ float warp_max(float v) {
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
+
+// float32(1/127) = 0x3C010204: the int8 rescale is scale * kInv127f, as
+// the jitted reference computes scale / 127.0 (ref.INV127)
+constexpr float kInv127f = 0x1.020408p-7f;
 
 // ref.quantize_lut's recipe for one entry: round(v / max(s, 1e-20) * 127)
 // to nearest even, clamped to +-127
@@ -347,7 +354,7 @@ __global__ void __launch_bounds__(kHopThreads)
     __syncwarp();
   } else {
     // ---- consumer warps ---------------------------------------------------
-    const float s127 = scale / 127.f;
+    const float s127 = __fmul_rn(scale, kInv127f);
     const int32_t* row_w = reinterpret_cast<const int32_t*>(row);
     const long long out0 = (long long)slot * R;
     if (valid) mbar_wait<false>(rowbar, 0);
@@ -511,58 +518,62 @@ __global__ void rerank_kernel(const float* __restrict__ q, int nq,
 // pallas_call in pq_adc.py:pq_adc) and _adc_q8_kernel (int8 LUT, the
 // pallas_call in pq_adc.py:pq_adc_q8).
 //
-// out[q, r] = sum_j lut[q, j, codes[r, j]] over n candidate rows of m code
-// bytes (u8) or words (i32). The Pallas body contracts a one-hot of the
-// codes with the LUT on the MXU, a TPU device; on Hopper the ADC is a
-// gather. Grid (row-tile blocks, nq): each block stages query q's (m, ks)
-// LUT in shared memory once (when it fits in 48 KB: 10 KB at m=10 f32,
-// 32 KB at m=128 int8; otherwise it reads the LUT through __ldg) and then
-// walks row tiles of 256, one thread per row, adding the m entries in
-// order j = 0..m-1. The int8 LUT sums exactly in int32 and is rescaled
-// once by scale/127. Codes are read as they lie (u8 bytes, no widening
-// pass) and clamped to [0, ks) so a bad code cannot read outside the LUT.
+// out[q, r] = sum_j lut[q, j, codes[r, j]] over n rows of m code bytes (u8)
+// or words (i32), codes clamped to [0, ks). f32 sums run in order
+// j = 0..m-1; int8 sums are exact in int32 and rescaled once per query by
+// scale * kInv127f. The Pallas bodies contract a one-hot of the codes with
+// the LUT on the MXU; on Hopper the ADC is a gather. Tensor cores do not
+// pay here: the one-hot form costs 2*n*m*ks*nq operations (67 G at nq=8,
+// n=1M, m=16), ~34 us even at the int8 wgmma rate before the one-hot is
+// built, and TF32 would round the f32 LUT.
 //
-// Bound: bytes — each row's m code bytes are read once and one f32 is
-// written per (q, row); the work is m adds per output. The grid is capped
-// at one resident wave (8 blocks of 256 a SM) so the LUT is staged
-// ~1k times instead of once per 256 rows.
+// Persistent grid, one wave: each CTA (8 consumer warps and a producer
+// warp) walks row tiles of T rows strided by the grid. For each group of
+// G <= GP queries it stages the group's LUTs in shared memory interleaved
+// as table[j][code][GP] (queries padded to GP), so one gather fetches a
+// row's entry for every query of the group: GP*4 B in f32 (two lanes a
+// row at GP=8, a 16-byte load each), GP B in int8 (one 8-byte load at
+// GP=8). The codes then leave HBM once per query group, not once per
+// query. A thread owns an entry (j, code), reads its G values with
+// coalesced loads, U entries at a time, and stores them as one vector.
+// int8 tables are quantized here, bit-equal to ref.quantize_lut, by a
+// cluster of kAdcCluster CTAs: each takes a quarter of the entries, the
+// partial max|lut| per query meet in distributed shared memory, and each
+// CTA quantizes its quarter once into every CTA's table; so pq_adc_q8 is
+// one kernel and no torch op. The table holds q + 128 as a byte and a
+// lookup adds query pairs into the 16-bit halves of a word (m <= 256 at
+// GP > 1); the bias comes off once a row. The plain f32 LUT (GP=1) comes
+// by one cp.async.bulk. Where one query's LUT does not fit beside the
+// ring, the kGlobal variant reads the f32 LUT through __ldg (int8:
+// quantizing each entry it reads).
+//
+// Code tiles (T*m*sizeof(code) bytes, T a multiple of 16, so each tile
+// start is 16-byte aligned) reach a ring of 2-3 shared-memory slots by one
+// cp.async.bulk each, issued by the producer warp onto the slot's "full"
+// mbarrier; each consumer warp arrives on the slot's "empty" mbarrier when
+// it is done. The partial last tile, and every tile when the codes' base
+// is not 16-byte aligned, the consumers copy into the slot themselves. A
+// thread takes two rows a pass (lane i -> row r0 + i, so the stores
+// coalesce) and u8 codes 16, 4 or (any m) 4 at a time from one shared
+// load. Lookups carry no branch (a row past the tile's end looks up code
+// 0 and is not stored), so a thread's loads issue together.
+//
+// Bound: bytes at nq=1 (each code byte read once, one f32 written per
+// output). At nq=8 the gathers bound it: random banks cost ~3.5 wavefronts
+// a warp-wide f32 lookup, ~8 a 16-byte gather of 4 entries a phase, ~6 an
+// 8-byte one. The plan (G, GP, T, ring depth, cluster, bytes) comes from
+// pq_adc.py:adc_plan and is checked here by adc_plan_ok.
 // ---------------------------------------------------------------------------
 
-template <typename LutT, typename CodeT, bool kSmem>
-__global__ void pq_adc_kernel(const CodeT* __restrict__ codes, long long n,
-                              int m, const LutT* __restrict__ lut, int ks,
-                              const float* __restrict__ scale127,
-                              float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr bool kInt8 = sizeof(LutT) == 1;
-  using AccT = typename std::conditional<kInt8, int, float>::type;
-  const int q = blockIdx.y;
-  const LutT* lq = lut + (long long)q * m * ks;
-  LutT* slut = reinterpret_cast<LutT*>(smem_raw);
-  if (kSmem) {
-    for (int i = threadIdx.x; i < m * ks; i += blockDim.x)
-      slut[i] = __ldg(lq + i);
-    __syncthreads();
-  }
-  const float s127 = kInt8 ? scale127[q] : 1.f;
-  float* oq = out + (long long)q * n;
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       r < n; r += step) {
-    const CodeT* c = codes + r * m;
-    AccT acc = 0;
-    for (int j = 0; j < m; ++j) {
-      const int code = min(max((int)__ldg(c + j), 0), ks - 1);
-      acc += kSmem ? slut[j * ks + code] : __ldg(lq + j * ks + code);
-    }
-    oq[r] = kInt8 ? (float)acc * s127 : (float)acc;
-  }
-}
-
 constexpr int kThreads = 256;
-
-constexpr int kAdcBlocksPerSm = 8;
-constexpr int kSmemLimit = 48 * 1024;
+constexpr int kAdcConsumerWarps = 8;
+constexpr int kAdcConsumers = kAdcConsumerWarps * 32;
+constexpr int kAdcThreads = kAdcConsumers + 32;   // + the producer warp
+// 3 full + 3 empty mbarriers, 16 maxima, the LUT's mbarrier, and the
+// cluster's partial maxima [kAdcCluster][16]
+constexpr int kAdcHeaderBytes = 384;
+constexpr int kAdcCluster = 4;   // CTAs that stage an int8 table together
+constexpr int kAdcMaxGroup = 16;
 
 int sm_count() {
   static int count = 0;
@@ -575,42 +586,681 @@ int sm_count() {
   return count;
 }
 
-template <typename LutT, typename CodeT>
-void launch_pq_adc_typed(const void* codes, long long n, int m,
-                         const void* lut, const void* scale127, int nq,
-                         int ks, void* out, cudaStream_t stream) {
-  const long long tiles = (n + kThreads - 1) / kThreads;
-  const long long cap = (long long)sm_count() * kAdcBlocksPerSm;
-  const dim3 grid((unsigned)(tiles < cap ? tiles : cap), (unsigned)nq);
-  const size_t lut_bytes = (size_t)m * ks * sizeof(LutT);
-  const CodeT* c = static_cast<const CodeT*>(codes);
-  const LutT* l = static_cast<const LutT*>(lut);
-  const float* s = static_cast<const float*>(scale127);
-  float* o = static_cast<float*>(out);
-  if (lut_bytes <= (size_t)kSmemLimit) {
-    pq_adc_kernel<LutT, CodeT, true><<<grid, kThreads, lut_bytes, stream>>>(
-        c, n, m, l, ks, s, o);
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// a barrier of the consumer warps only (the producer warp runs ahead)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"r"(kAdcConsumers) : "memory");
+}
+
+// add the GP entries at e (one query each) to acc
+template <int GP>
+__device__ __forceinline__ void adc_add(float (&acc)[GP], const float* e) {
+  if constexpr (GP == 1) {
+    acc[0] += e[0];
+  } else if constexpr (GP == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(e);
+    acc[0] += v.x;
+    acc[1] += v.y;
   } else {
-    pq_adc_kernel<LutT, CodeT, false><<<grid, kThreads, 0, stream>>>(
-        c, n, m, l, ks, s, o);
+#pragma unroll
+    for (int i = 0; i < GP / 4; ++i) {
+      const float4 v = reinterpret_cast<const float4*>(e)[i];
+      acc[4 * i] += v.x;
+      acc[4 * i + 1] += v.y;
+      acc[4 * i + 2] += v.z;
+      acc[4 * i + 3] += v.w;
+    }
   }
 }
 
-template <typename LutT>
-int launch_pq_adc(const void* codes, long long n, int m, int codes_i32,
-                  const void* lut, const void* scale127, int nq, int ks,
-                  void* out, void* stream) {
-  if (n > 0 && nq > 0 && m > 0) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (codes_i32) {
-      launch_pq_adc_typed<LutT, int32_t>(codes, n, m, lut, scale127, nq, ks,
-                                         out, st);
+// int8 tables hold q + 128 as a byte (1..255): a lookup adds query pairs
+// into the two 16-bit halves of a word (two byte permutes and two adds
+// for four queries), exact while m <= 256 (255 * 256 < 65536); the bias
+// comes off once a row (adc_q8_sum)
+template <int GP>
+__device__ __forceinline__ void adc_add(uint32_t (&acc)[GP > 1 ? GP / 2 : 1],
+                                        const int8_t* e) {
+  if constexpr (GP == 1) {
+    acc[0] += *reinterpret_cast<const uint8_t*>(e);
+  } else if constexpr (GP == 2) {
+    acc[0] += __byte_perm(*reinterpret_cast<const uint16_t*>(e), 0, 0x4140);
+  } else {
+    uint32_t w[GP / 4];
+    if constexpr (GP == 4) {
+      w[0] = *reinterpret_cast<const uint32_t*>(e);
+    } else if constexpr (GP == 8) {
+      const uint2 v = *reinterpret_cast<const uint2*>(e);
+      w[0] = v.x;
+      w[1] = v.y;
     } else {
-      launch_pq_adc_typed<LutT, uint8_t>(codes, n, m, lut, scale127, nq, ks,
-                                         out, st);
+      const uint4 v = *reinterpret_cast<const uint4*>(e);
+      w[0] = v.x;
+      w[1] = v.y;
+      w[2] = v.z;
+      w[3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < GP / 4; ++i) {
+      acc[2 * i] += __byte_perm(w[i], 0, 0x4140);
+      acc[2 * i + 1] += __byte_perm(w[i], 0, 0x4342);
     }
   }
+}
+
+// the int32 sum of query g from the packed, biased sums of m lookups
+template <int GP>
+__device__ __forceinline__ int adc_q8_sum(
+    const uint32_t (&acc)[GP > 1 ? GP / 2 : 1], int g, int m) {
+  const uint32_t v = GP == 1 ? acc[0] : (acc[g / 2] >> 16 * (g % 2)) & 0xFFFFu;
+  return (int)v - 128 * m;
+}
+
+// store a staged entry's GP values (one query each) at dst
+template <int GP>
+__device__ __forceinline__ void adc_put(float* dst, const float (&v)[GP]) {
+  if constexpr (GP == 1) {
+    dst[0] = v[0];
+  } else if constexpr (GP == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < GP / 4; ++i)
+      reinterpret_cast<float4*>(dst)[i] =
+          make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+  }
+}
+
+template <int GP>
+__device__ __forceinline__ void adc_put(int8_t* dst, const int (&v)[GP]) {
+  uint32_t w[(GP + 3) / 4] = {};
+#pragma unroll
+  for (int g = 0; g < GP; ++g)
+    w[g / 4] |= (uint32_t)(v[g] & 0xFF) << 8 * (g % 4);
+  if constexpr (GP == 1) {
+    *reinterpret_cast<uint8_t*>(dst) = (uint8_t)w[0];
+  } else if constexpr (GP == 2) {
+    *reinterpret_cast<uint16_t*>(dst) = (uint16_t)w[0];
+  } else if constexpr (GP == 4) {
+    *reinterpret_cast<uint32_t*>(dst) = w[0];
+  } else if constexpr (GP == 8) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  } else {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// Calls f(e, v) for this consumer's entries e in [e_lo, e_hi) of the
+// group's LUTs (E entries a query), v[g] the entry of query g (0 past the
+// group's gq queries): U entries a turn, all their loads issued before the
+// first use, so a thread keeps U*GP loads from L2 in flight instead of one.
+template <int GP, int U, typename F>
+__device__ __forceinline__ void for_entries(const float* lq, long long e_lo,
+                                            long long e_hi, long long E,
+                                            int gq, F&& f) {
+  for (long long e0 = e_lo + threadIdx.x; e0 < e_hi;
+       e0 += (long long)U * kAdcConsumers) {
+    float v[U][GP];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long e = e0 + (long long)u * kAdcConsumers;
+#pragma unroll
+      for (int g = 0; g < GP; ++g)
+        v[u][g] = g < gq && e < e_hi ? __ldg(lq + g * E + e) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long e = e0 + (long long)u * kAdcConsumers;
+      if (e < e_hi) f(e, v[u]);
+    }
+  }
+}
+
+// store a staged entry into the tables of all C CTAs of the cluster (its
+// own directly, the others through distributed shared memory)
+template <int GP, typename T, typename V>
+__device__ __forceinline__ void adc_put_all(cg::cluster_group& cluster, int C,
+                                            int rank, T* dst,
+                                            const V (&v)[GP]) {
+  adc_put<GP>(dst, v);
+  for (int d = 1; d < C; ++d)
+    adc_put<GP>(cluster.map_shared_rank(dst, (rank + d) % C), v);
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The consumers copy a tile into its ring slot themselves where no bulk
+// copy can: the partial last tile (its size need not be a multiple of 16),
+// and every tile of a table whose base is not 16-byte aligned. 16-byte
+// loads where the source allows them, bytes otherwise; the loads of a
+// thread are independent, so they overlap.
+__device__ __forceinline__ void fill_slot(unsigned char* dst,
+                                          const unsigned char* src,
+                                          int nbytes) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int nvec = nbytes / 16;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < nvec; i += kAdcConsumers)
+      d4[i] = __ldg(s4 + i);
+    done = nvec * 16;
+  }
+#pragma unroll 8
+  for (int i = done + threadIdx.x; i < nbytes; i += kAdcConsumers)
+    dst[i] = __ldg(src + i);
+}
+
+// one lookup: the entries of code `code` in a subspace whose table starts
+// at tj (GP entries a code; this lane's share of the group's queries), or
+// (kGlobal) whose f32 LUT row of query q0 starts at gj in global memory.
+// Offsets are 32-bit: a staged table is at most 227 KB.
+template <bool kInt8, int GP, int GQ, int NA, bool kGlobal, typename AccT,
+          typename EntT>
+__device__ __forceinline__ void adc_lookup(AccT (&acc)[NA], int code,
+                                           const EntT* tj, const float* gj,
+                                           float sdiv0) {
+  if constexpr (kGlobal) {
+    const float v = __ldg(gj + code);
+    if constexpr (kInt8) {
+      acc[0] += quantize_q8(v, sdiv0);
+    } else {
+      acc[0] += v;
+    }
+  } else if constexpr (kInt8) {
+    adc_add<GP>(acc, tj + code * GP);
+  } else {
+    adc_add<GQ>(acc, tj + code * GP);
+  }
+}
+
+// the lookups of subspaces j0..j0+3 of RB rows, codes packed a byte each
+// in cw[k]. A row past the tile's end has mask[k] = 0: it looks up code 0
+// (all its lanes read one address, a single wavefront) and is not stored;
+// no branch, so the loads of all rows and subspaces issue together.
+// kCheck: the last chunk of an m that is not a multiple of 4.
+template <bool kInt8, int GP, int GQ, int NA, int RB, bool kGlobal,
+          bool kCheck, typename AccT, typename EntT>
+__device__ __forceinline__ void adc_take4(AccT (&acc)[RB][NA],
+                                          const uint32_t (&cw)[RB],
+                                          const uint32_t (&mask)[RB], int j0,
+                                          int m, int ks, const EntT* tab,
+                                          const float* glut, float sdiv0) {
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    if (!kCheck || j0 + b < m) {
+      const int jk = (j0 + b) * ks;
+      const EntT* tj = tab + jk * GP;
+#pragma unroll
+      for (int k = 0; k < RB; ++k) {
+        const int code = min((int)((cw[k] >> 8 * b) & mask[k]), ks - 1);
+        adc_lookup<kInt8, GP, GQ, NA, kGlobal>(acc[k], code, tj, glut + jk,
+                                               sdiv0);
+      }
+    }
+  }
+}
+
+// One tile of `rows` rows staged in a ring slot (row r at codes_rows +
+// r*m). table: the group's staged LUT, or (kGlobal) query q0's f32 LUT in
+// global memory. Writes out[(q0 + g) * n + r0 + r] for the gq queries of
+// the group. A lane takes RB rows; f32 at GP=8 puts two lanes on a row,
+// each gathering 16 of the entry's 32 bytes (4 queries): a phase of a
+// 16-byte gather then holds 4 random entries instead of 8, ~8 wavefronts
+// a warp instead of ~13, for 16 rows instead of 32 (1.5x fewer a row).
+template <bool kInt8, typename CodeT, int GP, bool kGlobal>
+__device__ __forceinline__ void adc_tile(
+    const CodeT* codes_rows, int rows, int m, int ks, const void* table,
+    const float* glut, float sdiv0, const float (&s127)[GP], float* out,
+    long long n, long long r0, int q0, int gq) {
+  // f32 sums; int8 from global memory: signed int sums; int8 tables:
+  // packed, biased 16-bit sums of query pairs (adc_add)
+  using AccT = typename std::conditional<
+      !kInt8, float,
+      typename std::conditional<kGlobal, int, uint32_t>::type>::type;
+  using EntT = typename std::conditional<kInt8, int8_t, float>::type;
+  constexpr int QS = !kInt8 && GP == 8 ? 2 : 1;   // lanes a row
+  constexpr int GQ = GP / QS;                      // queries a lane
+  constexpr int NA = kInt8 && !kGlobal && GP > 1 ? GP / 2 : GQ;  // sums
+  constexpr int RB = 2;                            // rows a lane
+  constexpr int kStep = kAdcConsumers / QS;        // rows a CTA pass
+  constexpr bool kU8 = sizeof(CodeT) == 1;
+  const int half = threadIdx.x % QS;
+  const EntT* tab = static_cast<const EntT*>(table) + half * GQ;
+  for (int rb = threadIdx.x / QS; rb < rows; rb += RB * kStep) {
+    AccT acc[RB][NA];
+#pragma unroll
+    for (int k = 0; k < RB; ++k)
+#pragma unroll
+      for (int g = 0; g < NA; ++g) acc[k][g] = 0;
+    int rr[RB];
+    bool ok[RB];
+    uint32_t mask[RB];     // the code bits a row keeps: none past the end
+#pragma unroll
+    for (int k = 0; k < RB; ++k) {
+      ok[k] = rb + k * kStep < rows;
+      rr[k] = ok[k] ? rb + k * kStep : rows - 1;
+      mask[k] = ok[k] ? 0xFFu : 0u;
+    }
+    if constexpr (kU8) {
+      const uint8_t* rows8 = reinterpret_cast<const uint8_t*>(codes_rows);
+      uint32_t cw[RB];
+      auto take4 = [&](const uint32_t(&w)[RB], int j0) {
+        adc_take4<kInt8, GP, GQ, NA, RB, kGlobal, false>(acc, w, mask, j0, m,
+                                                         ks, tab, glut, sdiv0);
+      };
+      if ((m & 15) == 0) {
+        // rows 16-byte aligned: one vector load a row takes 16 codes
+        for (int j0 = 0; j0 < m; j0 += 16) {
+          uint4 c[RB];
+#pragma unroll
+          for (int k = 0; k < RB; ++k)
+            c[k] = *reinterpret_cast<const uint4*>(rows8 + rr[k] * m + j0);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int k = 0; k < RB; ++k)
+              cw[k] = i == 0 ? c[k].x : i == 1 ? c[k].y : i == 2 ? c[k].z
+                                                                : c[k].w;
+            take4(cw, j0 + 4 * i);
+          }
+        }
+      } else if ((m & 3) == 0) {
+        // rows word-aligned: one word load takes four codes
+        for (int j0 = 0; j0 < m; j0 += 4) {
+#pragma unroll
+          for (int k = 0; k < RB; ++k)
+            cw[k] = *reinterpret_cast<const uint32_t*>(rows8 + rr[k] * m + j0);
+          take4(cw, j0);
+        }
+      } else {
+        // any m: aligned word loads and a funnel shift (the slot's 16
+        // bytes of slack cover the last row's extra word)
+        const uint32_t* w[RB];
+        uint32_t lo[RB];
+        int sh[RB];
+#pragma unroll
+        for (int k = 0; k < RB; ++k) {
+          const int off = rr[k] * m;
+          w[k] = reinterpret_cast<const uint32_t*>(rows8 + (off & ~3));
+          sh[k] = (off & 3) * 8;
+          lo[k] = w[k][0];
+        }
+        for (int j0 = 0; j0 < m; j0 += 4) {
+#pragma unroll
+          for (int k = 0; k < RB; ++k) {
+            const uint32_t hi = w[k][j0 / 4 + 1];
+            cw[k] = __funnelshift_r(lo[k], hi, sh[k]);
+            lo[k] = hi;
+          }
+          if (j0 + 4 <= m) {
+            take4(cw, j0);
+          } else {   // the last, short chunk
+            adc_take4<kInt8, GP, GQ, NA, RB, kGlobal, true>(
+                acc, cw, mask, j0, m, ks, tab, glut, sdiv0);
+          }
+        }
+      }
+    } else {
+      for (int j = 0; j < m; ++j) {
+        const EntT* tj = tab + j * ks * GP;
+#pragma unroll
+        for (int k = 0; k < RB; ++k) {
+          const int c = codes_rows[rr[k] * m + j];
+          adc_lookup<kInt8, GP, GQ, NA, kGlobal>(
+              acc[k], ok[k] ? min(max(c, 0), ks - 1) : 0, tj, glut + j * ks,
+              sdiv0);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RB; ++k) {
+      if (ok[k]) {
+        const long long r = r0 + rb + k * kStep;
+#pragma unroll
+        for (int g = 0; g < GQ; ++g) {
+          const int qg = half * GQ + g;
+          if (qg < gq) {
+            if constexpr (kInt8 && kGlobal) {
+              out[(long long)(q0 + qg) * n + r] = (float)acc[k][0] * s127[0];
+            } else if constexpr (kInt8) {
+              out[(long long)(q0 + qg) * n + r] =
+                  (float)adc_q8_sum<GP>(acc[k], g, m) * s127[g];
+            } else {
+              out[(long long)(q0 + qg) * n + r] = acc[k][g];
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <bool kInt8, typename CodeT, int GP, bool kGlobal>
+__global__ void __launch_bounds__(kAdcThreads)
+    pq_adc_kernel(const CodeT* __restrict__ codes, long long n, int m,
+                  const float* __restrict__ lut, int nq, int ks, int group,
+                  int tile_rows, int depth, int slot_bytes, int bulk,
+                  float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);    // [depth]
+  uint64_t* empty = full + 3;                            // [depth]
+  unsigned int* pmax = reinterpret_cast<unsigned int*>(smem + 48);  // [16]
+  uint64_t* lutbar = reinterpret_cast<uint64_t*>(smem + 112);
+  float* pslot = reinterpret_cast<float*>(smem + 128);   // [C][16]
+  unsigned char* ring = smem + kAdcHeaderBytes;
+  void* table = ring + depth * slot_bytes;
+  // int8 tables are staged by a cluster; f32 ones by each CTA alone
+  constexpr bool kCl = kInt8 && !kGlobal;
+  // entries a turn of for_entries: U*GP values in flight a thread
+  constexpr int U = kInt8 ? (GP >= 16 ? 2 : GP >= 8 ? 4 : GP >= 4 ? 8 : 16)
+                          : (GP >= 8 ? 8 : 16);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = kCl ? (int)cluster.num_blocks() : 1;
+  const int rank = kCl ? (int)cluster.block_rank() : 0;
+  // the barrier that closes each staging step: the cluster's, or the
+  // consumers' of this CTA
+  auto step_sync = [&]() {
+    if constexpr (kCl) {
+      cluster_arrive();
+      cluster_wait();
+    } else {
+      consumer_sync();
+    }
+  };
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long n_tiles = (n + tile_rows - 1) / tile_rows;
+  const long long n_full = bulk ? n / tile_rows : 0;   // tiles by bulk copy
+  const int n_groups = (nq + group - 1) / group;
+  const long long E = (long long)m * ks;
+  const uint32_t tile_bytes = (uint32_t)tile_rows * m * sizeof(CodeT);
+  // this CTA's share of the staging: entries [e_lo, e_hi) of each LUT
+  const long long per = ((E + C - 1) / C + 31) / 32 * 32;
+  const long long e_lo = min(E, rank * per), e_hi = min(E, e_lo + per);
+  // f32 at GP=1: the LUT by one cp.async.bulk where it is 16-byte aligned
+  const bool lut_bulk = !kInt8 && GP == 1 && !kGlobal && E % 4 == 0 &&
+                        (reinterpret_cast<uintptr_t>(lut) & 15) == 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < depth; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kAdcConsumerWarps);
+    }
+    mbar_init(lutbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if constexpr (kCl) {
+    cluster_arrive();     // every barrier of the cluster exists
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+
+  // Per query group the consumers pass barriers A (done with the previous
+  // group's table), int8 M (the partial maxima are exchanged) and B (the
+  // group's table is complete). With a cluster these are cluster barriers,
+  // which the producer warp passes too.
+  if (warp == kAdcConsumerWarps) {
+    // ---- producer: lane 0 keeps the ring full, across query groups ------
+    long long k = 0;
+    for (int gi = 0; gi < n_groups; ++gi) {
+      if constexpr (kCl) {
+        cluster_arrive();   // A
+        cluster_wait();
+        cluster_arrive();   // M
+        cluster_wait();
+        cluster_arrive();   // B: tiles go on arriving while the table fills
+      }
+      if (lane == 0) {
+        for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x, ++k) {
+          const int s = (int)(k % depth);
+          if (k >= depth)
+            mbar_wait<false>(&empty[s], (uint32_t)((k / depth - 1) & 1));
+          if (t < n_full) {
+            mbar_expect_tx(&full[s], tile_bytes);
+            bulk_load(ring + s * slot_bytes, codes + t * tile_rows * m,
+                      tile_bytes, &full[s]);
+          } else {
+            mbar_arrive(&full[s]);    // the slot is free: consumers fill it
+          }
+        }
+      }
+      __syncwarp();
+      if constexpr (kCl) cluster_wait();
+    }
+    return;
+  }
+
+  // ---- consumers -----------------------------------------------------------
+  long long k = 0;
+  for (int gi = 0; gi < n_groups; ++gi) {
+    const int q0 = gi * group, gq = min(group, nq - q0);
+    const float* lq = lut + (long long)q0 * E;
+    float s127[GP], sdiv0 = 1.f;
+    step_sync();         // A
+    if constexpr (kInt8) {
+      if (tid < kAdcMaxGroup) pmax[tid] = 0u;
+      consumer_sync();
+      float mx[GP];
+#pragma unroll
+      for (int g = 0; g < GP; ++g) mx[g] = 0.f;
+      for_entries<GP, U>(lq, e_lo, e_hi, E, gq,
+                         [&](long long, const float(&v)[GP]) {
+#pragma unroll
+        for (int g = 0; g < GP; ++g) mx[g] = fmaxf(mx[g], fabsf(v[g]));
+      });
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+        mx[g] = warp_max(mx[g]);
+        // |x| >= 0, so the float order is the unsigned order of the bits
+        if (lane == 0 && g < gq) atomicMax(&pmax[g], __float_as_uint(mx[g]));
+      }
+      consumer_sync();
+      // this CTA's partial maxima into slot `rank` of every CTA
+      if (tid < GP) {
+        const float pm = __uint_as_float(pmax[tid]);
+        if constexpr (kCl) {
+          for (int d = 0; d < C; ++d)
+            *cluster.map_shared_rank(pslot + rank * kAdcMaxGroup + tid, d) =
+                pm;
+        } else {
+          pslot[tid] = pm;
+        }
+      }
+      step_sync();       // M
+      float sdiv[GP];
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+        float s = 0.f;
+        for (int r = 0; r < C; ++r)
+          s = fmaxf(s, pslot[r * kAdcMaxGroup + g]);
+        if (g >= gq) s = 0.f;
+        sdiv[g] = fmaxf(s, 1e-20f);
+        s127[g] = __fmul_rn(s, kInv127f);
+      }
+      sdiv0 = sdiv[0];
+      if constexpr (!kGlobal) {
+        // quantize this CTA's share once, into every CTA's table
+        for_entries<GP, U>(lq, e_lo, e_hi, E, gq,
+                           [&](long long e, const float(&v)[GP]) {
+          int q8[GP];
+#pragma unroll
+          for (int g = 0; g < GP; ++g)
+            q8[g] = quantize_q8(v[g], sdiv[g]) + 128;
+          adc_put_all<GP>(cluster, C, rank,
+                          static_cast<int8_t*>(table) + e * GP, q8);
+        });
+      }
+    } else {
+#pragma unroll
+      for (int g = 0; g < GP; ++g) s127[g] = 1.f;
+      if (lut_bulk) {
+        // one query's f32 LUT is already laid out as [j][code]: one bulk
+        // copy, onto its own mbarrier
+        if (tid == 0) {
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          mbar_expect_tx(lutbar, (uint32_t)(E * 4));
+          bulk_load(table, lq, (uint32_t)(E * 4), lutbar);
+        }
+        mbar_wait<false>(lutbar, (uint32_t)(gi & 1));
+      } else if constexpr (!kGlobal) {
+        for_entries<GP, U>(lq, 0, E, E, gq,
+                           [&](long long e, const float(&v)[GP]) {
+          adc_put<GP>(static_cast<float*>(table) + e * GP, v);
+        });
+      }
+    }
+    step_sync();         // B
+
+    for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const long long r0 = t * tile_rows;
+      const int rows = (int)min((long long)tile_rows, n - r0);
+      const int s = (int)(k % depth);
+      unsigned char* slot = ring + s * slot_bytes;
+      mbar_wait<false>(&full[s], (uint32_t)((k / depth) & 1));
+      if (t >= n_full) {
+        fill_slot(slot, reinterpret_cast<const unsigned char*>(codes + r0 * m),
+                  rows * m * (int)sizeof(CodeT));
+        consumer_sync();
+      }
+      adc_tile<kInt8, CodeT, GP, kGlobal>(
+          reinterpret_cast<const CodeT*>(slot), rows, m, ks, table, lq, sdiv0,
+          s127, out, n, r0, q0, gq);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      ++k;
+    }
+  }
+}
+
+// the plan of pq_adc.py:adc_plan: header, `depth` ring slots of T rows
+// (+16 bytes: the funnel shift reads one word past a row), then the
+// interleaved LUT of GP queries (none on the global path); a cluster of
+// kAdcCluster CTAs stages an int8 table
+int adc_plan_ok(int int8, int esize, int m, int ks, int group, int gp,
+                int tile_rows, int depth, int slot_bytes, int global,
+                int cluster, int smem_bytes) {
+  if (m < 1 || ks < 1 || tile_rows < 16 || tile_rows % 16 || depth < 2 ||
+      depth > 3)
+    return 0;
+  const bool gp_ok = gp == 1 || gp == 2 || gp == 4 || gp == 8 ||
+                     (int8 && gp == 16);
+  if (!gp_ok || (global ? (gp != 1 || group != 1) : group < 1 || group > gp))
+    return 0;
+  // int8 tables: a cluster stages them, and packed 16-bit sums take m <= 256
+  if (cluster != (global || !int8 ? 1 : kAdcCluster)) return 0;
+  if (int8 && gp > 1 && m > 256) return 0;
+  const long long tile = (long long)tile_rows * m * esize;
+  if (slot_bytes != (tile + 16 + 127) / 128 * 128) return 0;
+  const long long lut =
+      global ? 0 : ((long long)m * ks * gp * (int8 ? 1 : 4) + 15) / 16 * 16;
+  return smem_bytes == kAdcHeaderBytes + depth * (long long)slot_bytes + lut;
+}
+
+struct AdcCall {
+  const void* codes;
+  long long n;
+  int m;
+  const float* lut;
+  int nq, ks, group, tile_rows, depth, slot_bytes, cluster, smem, bulk;
+  float* out;
+  cudaStream_t stream;
+  int* occupancy;   // non-null: report instead of launching
+};
+
+template <bool kInt8, typename CodeT, int GP, bool kGlobal>
+int adc_run(const AdcCall& a) {
+  const auto kern = pq_adc_kernel<kInt8, CodeT, GP, kGlobal>;
+  // above 48 KB a block's dynamic shared memory must be allowed first
+  static int allowed = 48 * 1024;
+  if (a.smem > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+    if (e != cudaSuccess) return (int)e;
+    allowed = a.smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cfg.gridDim = dim3((unsigned)a.cluster);
+  cfg.blockDim = dim3(kAdcThreads);
+  cfg.dynamicSmemBytes = (size_t)a.smem;
+  cfg.stream = a.stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)a.cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  // resident clusters at this shared memory: the persistent grid's size
+  static int occ_smem = -1, occ_cluster = -1, occ_clusters = 0;
+  if (a.smem != occ_smem || a.cluster != occ_cluster) {
+    const cudaError_t e =
+        cudaOccupancyMaxActiveClusters(&occ_clusters, kern, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    occ_smem = a.smem;
+    occ_cluster = a.cluster;
+  }
+  if (a.occupancy) {
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaFuncGetAttributes(&fa, kern);
+    if (e != cudaSuccess) return (int)e;
+    int* o = a.occupancy;
+    o[0] = fa.numRegs;
+    o[1] = (int)fa.sharedSizeBytes;
+    o[2] = a.smem;
+    o[3] = (int)fa.localSizeBytes;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[4], kern,
+                                                      kAdcThreads,
+                                                      (size_t)a.smem);
+    if (e != cudaSuccess) return (int)e;
+    o[5] = sm_count();
+    o[6] = occ_clusters;
+    o[7] = a.cluster;
+    return 0;
+  }
+  if (occ_clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long n_tiles = (a.n + a.tile_rows - 1) / a.tile_rows;
+  const long long want = (n_tiles + a.cluster - 1) / a.cluster;
+  cfg.gridDim = dim3((unsigned)(a.cluster *
+                                (want < occ_clusters ? want : occ_clusters)));
+  const cudaError_t le = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const CodeT*>(a.codes), a.n, a.m, a.lut, a.nq,
+      a.ks, a.group, a.tile_rows, a.depth, a.slot_bytes, a.bulk, a.out);
+  if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();
+}
+
+template <bool kInt8, typename CodeT>
+int adc_pick(int gp, int global, const AdcCall& a) {
+  if (global) return adc_run<kInt8, CodeT, 1, true>(a);
+  switch (gp) {
+    case 1: return adc_run<kInt8, CodeT, 1, false>(a);
+    case 2: return adc_run<kInt8, CodeT, 2, false>(a);
+    case 4: return adc_run<kInt8, CodeT, 4, false>(a);
+    case 8: return adc_run<kInt8, CodeT, 8, false>(a);
+    case 16:
+      if constexpr (kInt8) return adc_run<kInt8, CodeT, 16, false>(a);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int adc_dispatch(int int8, int codes_i32, int gp, int global,
+                 const AdcCall& a) {
+  if (int8)
+    return codes_i32 ? adc_pick<true, int32_t>(gp, global, a)
+                     : adc_pick<true, uint8_t>(gp, global, a);
+  return codes_i32 ? adc_pick<false, int32_t>(gp, global, a)
+                   : adc_pick<false, uint8_t>(gp, global, a);
 }
 
 template <bool kInt8>
@@ -767,18 +1417,41 @@ int aisaq_rerank(const void* q, int nq, const void* cand,
   return (int)cudaGetLastError();
 }
 
-int aisaq_pq_adc_f32(const void* codes, long long n, int m, int codes_i32,
-                     const void* lut, int nq, int ks, void* out,
-                     void* stream) {
-  return launch_pq_adc<float>(codes, n, m, codes_i32, lut, nullptr, nq, ks,
-                              out, stream);
+int aisaq_pq_adc(const void* codes, long long n, int m, int codes_i32,
+                 const void* lut, int nq, int ks, int int8, int group, int gp,
+                 int tile_rows, int depth, int slot_bytes, int global,
+                 int cluster, int smem_bytes, void* out, void* stream) {
+  if (!adc_plan_ok(int8, codes_i32 ? 4 : 1, m, ks, group, gp, tile_rows,
+                   depth, slot_bytes, global, cluster, smem_bytes))
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0 || nq <= 0) return (int)cudaGetLastError();
+  // tiles go by cp.async.bulk only from a 16-byte aligned base (a sliced
+  // table, e.g. codes[1:], is read with plain loads)
+  const int bulk = (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
+  const AdcCall a = {codes, n, m, static_cast<const float*>(lut), nq, ks,
+                     group, tile_rows, depth, slot_bytes, cluster,
+                     smem_bytes, bulk,
+                     static_cast<float*>(out),
+                     static_cast<cudaStream_t>(stream), nullptr};
+  return adc_dispatch(int8, codes_i32, gp, global, a);
 }
 
-int aisaq_pq_adc_int8(const void* codes, long long n, int m, int codes_i32,
-                      const void* lut_q8, const void* scale127, int nq,
-                      int ks, void* out, void* stream) {
-  return launch_pq_adc<int8_t>(codes, n, m, codes_i32, lut_q8, scale127, nq,
-                               ks, out, stream);
+// out: registers a thread, static shared bytes, dynamic shared bytes, local
+// (spill) bytes a thread, resident CTAs an SM, SMs, resident clusters,
+// CTAs a cluster
+int aisaq_adc_occupancy(int m, int codes_i32, int ks, int int8, int group,
+                        int gp, int tile_rows, int depth, int slot_bytes,
+                        int global, int cluster, int smem_bytes, void* out) {
+  if (!adc_plan_ok(int8, codes_i32 ? 4 : 1, m, ks, group, gp, tile_rows,
+                   depth, slot_bytes, global, cluster, smem_bytes))
+    return (int)cudaErrorInvalidValue;
+  AdcCall a = {};
+  a.m = m;
+  a.ks = ks;
+  a.cluster = cluster;
+  a.smem = smem_bytes;
+  a.occupancy = static_cast<int*>(out);
+  return adc_dispatch(int8, codes_i32, gp, global, a);
 }
 
 }  // extern "C"

@@ -10,10 +10,26 @@ fields make ids single words and uint8 fields unpack with shifts.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.chunk_layout import ChunkLayout
 from repro_torch.device import full_fp32
+
+# the int8 rescale: an int32 sum (or an int8 entry) times scale * INV127.
+# Under jax.jit, XLA rewrites the reference's `scale / 127.0` as a multiply
+# by this rounded reciprocal (0x3C010204), and the host path writes it out
+# (repro/core/adc.py); a true quotient differs in the last bit on ~4% of
+# scales.
+INV127 = np.float32(1 / 127)
+
+
+def rescale127(scale: torch.Tensor) -> torch.Tensor:
+    """scale * float32(1/127) in float32, as the jitted reference rescales.
+    The Python scalar is a float32 value, and a float32 tensor's product
+    with a scalar is one float32 multiply on either device (and stays
+    capturable in a CUDA graph, unlike a new constant tensor)."""
+    return scale * float(INV127)
 
 
 # ---------------------------------------------------------------------------
@@ -64,14 +80,22 @@ def quantize_lut(lut: torch.Tensor):
     """Symmetric per-query int8 LUT quantization (the reference recipe).
 
     lut (nq, m, ks) f32 -> (lut_q8 (nq, m, ks) int8, scale (nq,) f32);
-    dequantization is lut_q8 * (scale / 127). `torch.round` rounds half to
-    even, as jnp.round and np.round do, so the codes are bit-equal.
+    dequantization is lut_q8 * rescale127(scale). `torch.round` rounds
+    half to even, as jnp.round and np.round do, so the codes are bit-equal.
     """
     scale = lut.abs().amax(dim=(1, 2))
     lut_q8 = torch.clamp(torch.round(
         lut / torch.clamp_min(scale[:, None, None], 1e-20) * 127.0),
         -127, 127).to(torch.int8)
     return lut_q8, scale
+
+
+def dequantize_lut(lut: torch.Tensor) -> torch.Tensor:
+    """The quantize-dequantize LUT whose entries the int8 kernels sum:
+    lut_q8 * rescale127(scale), the reference's `ops.fused_hop` emulation
+    as it runs under jax.jit."""
+    lut_q8, scale = quantize_lut(lut)
+    return lut_q8.float() * rescale127(scale)[:, None, None]
 
 
 def pq_lut_ref(queries: torch.Tensor, centroids: torch.Tensor, *,
@@ -144,15 +168,15 @@ def adc_ref(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 def pq_adc_q8_ref(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """int8 ADC with the reference recipe: the LUT quantized per query
     (`quantize_lut`), its entries summed exactly in int32, and the sum
-    rescaled once by scale/127. lut (nq, m, ks) or (m, ks) f32, codes
-    (n, m) int -> (nq, n) or (n,) f32."""
+    rescaled once by scale * INV127. lut (nq, m, ks) or (m, ks) f32, codes
+    (n, m) int -> (nq, n) or (n,) f32. The rescale is `rescale127`."""
     squeeze = lut.ndim == 2
     lut = lut[None] if squeeze else lut
     nq, m, ks = lut.shape
     lut_q8, scale = quantize_lut(lut)
     idx = codes.long() + torch.arange(m, device=lut.device) * ks
     acc = lut_q8.reshape(nq, m * ks)[:, idx].sum(-1, dtype=torch.int32)
-    out = acc.float() * (scale / 127.0)[:, None]
+    out = acc.float() * rescale127(scale)[:, None]
     return out[0] if squeeze else out
 
 
@@ -171,8 +195,7 @@ def fused_hop_ref(chunk_words: torch.Tensor, frontier_ids: torch.Tensor,
     if layout.mode != "aisaq":
         raise NotImplementedError("fused_hop needs inline codes (aisaq mode)")
     if adc_dtype == "int8":
-        lut_q8, scale = quantize_lut(lut)
-        lut = lut_q8.float() * (scale / 127.0)[:, None, None]
+        lut = dequantize_lut(lut)
     elif adc_dtype != "f32":
         raise ValueError(f"adc_dtype must be 'f32' or 'int8', "
                          f"got {adc_dtype!r}")

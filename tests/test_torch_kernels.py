@@ -2,6 +2,7 @@
 against the JAX package: `repro.kernels.ref` and the Pallas kernels in
 interpret mode, on the shape sweeps of tests/test_kernels.py plus a
 SIFT1M-width case. Tolerances follow tests/test_kernels.py."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -132,6 +133,68 @@ def test_fused_hop_matches_jax(dt, metric, R, m, dim, adc):
         fin = torch.isfinite(d32)
         bound = m * float(np.abs(lut).max()) / 127
         assert float((mine[2][fin] - d32[fin]).abs().max()) <= bound + 1e-3
+
+
+def _q8_hop_exact(words, fids, lut, qs, lay, metric):
+    """The int8 hop's nbr_d from int32 sums of `ref.quantize_lut`'s codes,
+    rescaled by scale * INV127: the CPU counterpart of chip_smoke.py's
+    `hop_q8_exact`."""
+    lut_q8, scale = ref.quantize_lut(lut)
+    _, _, codes, nvalid = ref.expand_rows_ref(words, fids, qs, lay,
+                                              metric=metric)
+    nq, w, R, m = codes.shape
+    ks = lut.shape[-1]
+    idx = codes.long() + torch.arange(m) * ks
+    flat = lut_q8.reshape(nq, 1, 1, m * ks).expand(nq, w, R, m * ks)
+    acc = torch.gather(flat, 3, idx).sum(-1, dtype=torch.int32)
+    d = acc.float() * ref.rescale127(scale)[:, None, None]
+    return torch.where(nvalid, d, torch.inf)
+
+
+@pytest.mark.parametrize("dt,metric,R,m,dim",
+                         [s for s in HOP_SHAPES if s[3] % 8 == 0])
+def test_int8_hop_int32_sums_match_pallas(dt, metric, R, m, dim):
+    """int32 sums of the quantized LUT times scale * INV127 equal the
+    interpreted Pallas int8 hop's nbr_d bit for bit (the jitted kernel
+    multiplies by the rounded reciprocal of 127)."""
+    jlay, lay, words, fids, qs, cents = _hop_case(dt, R, m, dim)
+    lut = np.asarray(jref.pq_lut_ref(jnp.asarray(qs), jnp.asarray(cents),
+                                     metric=metric))
+    _, _, want = jops.fused_hop(jnp.asarray(words), jnp.asarray(fids),
+                                jnp.asarray(lut), jnp.asarray(qs),
+                                layout=jlay, metric=metric,
+                                backend="pallas_interpret", adc_dtype="int8")
+    mine = _q8_hop_exact(_t(words), _t(fids), _t(lut), _t(qs), lay, metric)
+    np.testing.assert_array_equal(mine.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_int8_dequantized_lut_matches_jit(seed, monkeypatch):
+    """`ref.dequantize_lut`, the LUT that fused_hop_ref(adc_dtype="int8")
+    sums, equals the one repro/kernels/ops.py builds for its int8
+    emulation when run under jax.jit, as the device search runs it. The
+    LUT is captured where ops.fused_hop hands it to the plain hop. An
+    eager `scale / 127.0` (a true quotient) differs on these inputs."""
+    jlay, _, words, _, _, _ = _hop_case("float32", 8, 16, 32, N=10)
+    rng = np.random.default_rng(seed)
+    nq = 64
+    lut = (rng.random((nq, 16, 256))
+           * rng.uniform(0.5, 40.0, (nq, 1, 1))).astype(np.float32)
+    fids = np.zeros((nq, 4), dtype=np.int32)
+    qs = np.zeros((nq, 32), dtype=np.float32)
+    monkeypatch.setattr(jops._ref, "fused_hop_ref",
+                        lambda cw, f, lut_q, q, layout, metric:
+                        (lut_q, lut_q, lut_q))
+    served = jax.jit(lambda l: jops.fused_hop(
+        jnp.asarray(words), jnp.asarray(fids), l, jnp.asarray(qs),
+        layout=jlay, backend="ref", adc_dtype="int8")[0])
+    want = np.asarray(served(jnp.asarray(lut)))
+    mine = ref.dequantize_lut(_t(lut))
+    np.testing.assert_array_equal(mine.numpy(), want)
+    q8, scale = ref.quantize_lut(_t(lut))
+    true_quotient = (q8.float() * (scale / torch.full_like(scale, 127.0))
+                     [:, None, None]).numpy()
+    assert not np.array_equal(true_quotient, want)
 
 
 def _configs():
