@@ -13,7 +13,11 @@ non-zero):
      an m=80 layout whose last LUT slab is short, each with a query whose
      frontier is all -1; the int8 hop bit-equal to int32 sums of
      `ref.quantize_lut`'s codes rescaled by scale * INV127; the hop's
-     shared-memory plan and occupancy; and the bulk ADC at every
+     shared-memory plan and occupancy; pq_lut and
+     rerank (as a tensor and by id from f32 and u8 chunk rows, with ids
+     < 0 and past the table, and d not a multiple of 4) at every width
+     and the SASRec one, batches of 1, 64 and 256; the `[lut]` and
+     `[rerank]` plan lines; and the bulk ADC at every
      `ADC_CASES` shape (f32 and int8 LUT, u8 and i32 codes; pq_adc_q8
      bit-equal to its int32 recomputation), a table at an odd byte offset
      and an all-zero LUT;
@@ -21,9 +25,15 @@ non-zero):
      trained on the card, chunk table packed on the card) served through
      `ServingEngine` + `make_device_search_fn(L=256, rerank=100)`, f32 and
      int8; recall@10 against brute-force groundtruth, agreement with the plain
-     (`backend="ref"`) search, and every kernel's launch count; then the
-     `[hop]` lines: the fused hop's time with one LUT and with the LUT
-     rotated out of L2, its registers, shared memory and resident CTAs;
+     (`backend="ref"`) search, and every kernel's launch count; one
+     served batch profiled (its device ops: one rerank_kernel and no
+     chunk-row copy); then the `[hop]` lines: the fused hop's time with
+     one LUT and with the LUT rotated out of L2, its registers, shared
+     memory and resident CTAs; the `[lut]` and `[rerank]` times (pq_lut
+     at batch 64 and 256, rerank of gathered
+     candidates, and the serving rerank step: the gather route that
+     served it before rerank_rows (index_select, slice, rerank, where)
+     against one rerank_rows);
   4. DiskANN placement: the same 10k vectors, graph and codes re-packed
      with mode="diskann" and served the same way; recall@10, agreement with
      phase 3, fast-tier bytes of both placements at batch 64, the time of
@@ -46,6 +56,16 @@ non-zero):
      time at the shape and at one tile a CTA (mostly the LUT staging),
      and one device op a call.
 Each path's launch counts are reset just before it and read just after.
+Each profiled window whose counts are checked (the device ops of a
+kernel call, the served batch) must show every launch the wrappers
+counted in it (`profile_window`); the other windows (the profiled
+searches and the serving rerank step at 1M nodes, the SASRec request)
+print how many they show. On
+the H100 host a window opened after a minute without one lost device
+events, whole windows or parts of them, for the rest of the process,
+while a fresh process did not: so the first window opens after the 10k
+build's two host-only minutes, CUPTI stays up between windows, and a
+window that lost a launch is run again (up to 4 times).
 Then the card line, the `kernels` JSON line (times at each kernel's path
 shapes) and the result line.
 
@@ -86,6 +106,9 @@ SEARCH_L = 256
 RERANK = 100
 # the kernels of the ANN search path (phase 3)
 SEARCH_KERNELS = ("fused_hop_f32", "fused_hop_int8", "pq_lut", "rerank")
+# the name each kernel has in a profile (every kernel of the port)
+PORT_SYMBOLS = ("hop_kernel", "pq_lut_kernel", "rerank_kernel",
+                "pq_adc_kernel")
 TOL_DIST = 1e-4          # pq_lut / rerank rtol, atol (tests/test_kernels.py)
 TOL_HOP = 2e-6           # fused_hop scaled atol (tests/test_kernels.py)
 HOP_REPEATS = 20         # repeats of each parity hop that must match bits
@@ -382,6 +405,92 @@ def hop_parity(words, lay, lut, q, fids, metric):
     return errs
 
 
+def rows_err(got, want) -> float:
+    """rerank_rows output against its plain version: the same +inf
+    pattern (ids < 0) and the finite entries within rtol/atol TOL_DIST."""
+    import torch
+    fin = torch.isfinite(want)
+    require(torch.equal(torch.isfinite(got), fin),
+            "rerank_rows +inf pattern differs from the plain version")
+    return close_err(got[fin], want[fin])
+
+
+def lut_rerank_parity():
+    """pq_lut and rerank (candidates as a tensor, and by id from f32 and u8
+    chunk rows) against their plain versions at every `[parity]` width,
+    the SASRec retrieval width (m=10, dsub=5) and d not a multiple of 4,
+    batches of 1, 64 and 256. Ids run from -1 past the table's end (clamped to its last
+    row). Returns the max abs error of each kernel at SIFT1M widths, batch
+    64 (the main path's shape; every other case is on its line)."""
+    import torch
+    from repro_torch.configs import KILT_E5_22M, SIFT1B, SIFT1M
+    from repro_torch.kernels import ops, pq_lut
+    from repro_torch.kernels.rerank import rerank_rows
+    dev = torch.device("cuda")
+    errs = {}
+    # (name, d, data dtype, R, pq_m, metric); the odd widths have dsub 13
+    # (above the 8 of a register-unrolled case) and 5
+    widths = (("sift1m", SIFT1M.dim, "float32", SIFT1M.R, SIFT1M.pq_m, "l2"),
+              ("sift1b", SIFT1B.dim, "uint8", SIFT1B.R, SIFT1B.pq_m, "mips"),
+              ("sift1b-l2", SIFT1B.dim, "uint8", SIFT1B.R, SIFT1B.pq_m, "l2"),
+              ("kilt-e5-22m", KILT_E5_22M.dim, "float32", KILT_E5_22M.R,
+               KILT_E5_22M.pq_m, "mips"),
+              ("short-slab", 160, "float32", 20, 80, "l2"),
+              ("sasrec", 50, "float32", 8, RECSYS_PQ_M, "mips"),
+              ("odd-f32", 130, "float32", 20, 10, "l2"),
+              ("odd-u8", 50, "uint8", 16, 10, "mips"))
+    for name, d, dt, R, m, metric in widths:
+        N = 4096
+        lay, words = random_table(N, d, dt, R, m, dev, 13)
+        rng = np.random.default_rng(d + R)
+        for nq in (1, 64, 256):
+            q = torch.from_numpy(rng.normal(size=(nq, d))
+                                 .astype(np.float32)).to(dev)
+            if dt == "uint8":
+                q = q * 40 + 128
+            cents = torch.from_numpy(rng.normal(size=(m, 256, d // m))
+                                     .astype(np.float32)).to(dev)
+            want = ops.build_lut(q, cents, metric=metric, backend="ref")
+            e_lut = close_err(pq_lut.pq_lut(q, cents, metric=metric), want)
+            ids = rng.integers(-1, N + 3, (nq, RERANK)).astype(np.int32)
+            ids[0, :3] = -1
+            ids = torch.from_numpy(ids).to(dev)
+            e_rows = rows_err(rerank_rows(q, words, ids, lay, metric=metric),
+                              ops.rerank_rows(q, words, ids, lay,
+                                              metric=metric, backend="ref"))
+            cand = (torch.randint(0, 256, (nq, RERANK, d), device=dev)
+                    .float() if dt == "uint8"
+                    else torch.randn((nq, RERANK, d), device=dev))
+            e_rr = close_err(ops.rerank(q, cand, metric=metric),
+                             ops.rerank(q, cand, metric=metric,
+                                        backend="ref"))
+            # one set shared by all queries, at an odd float offset (scalar
+            # loads)
+            buf = torch.empty(RERANK * d + 1, device=dev)
+            shared = buf[1:].view(RERANK, d)
+            shared.copy_(cand[0])
+            e_sh = close_err(ops.rerank(q, shared, metric=metric),
+                             ops.rerank(q, shared, metric=metric,
+                                        backend="ref"))
+            if (name, nq) == ("sift1m", 64):
+                errs = {"pq_lut": e_lut, "rerank": max(e_rows, e_rr, e_sh)}
+            log("parity", kernel="pq_lut+rerank", widths=name, d=d,
+                data=dt, metric=metric, nq=nq, pq_m=m,
+                pq_lut_err=e_lut,
+                rerank_rows_err=e_rows, rerank_err=e_rr,
+                rerank_shared_odd_offset_err=e_sh)
+    # a mismatched shape is refused by the launcher itself
+    from repro_torch.kernels import _build
+    q = torch.zeros((2, 128), device=dev)
+    out = torch.empty((2, 128, 256), device=dev)
+    cents = torch.zeros((128, 256, 1), device=dev)
+    err = _build.lib().aisaq_pq_lut(q.data_ptr(), 2, 127, cents.data_ptr(),
+                                    128, 256, 1, 0, out.data_ptr(),
+                                    _build.stream())
+    require(err == 1, f"pq_lut launcher took d=127 for m*dsub=128: {err}")
+    return errs
+
+
 def phase_parity():
     """Every kernel against its plain version at the Table-1 widths
     (SIFT1M, SIFT1B, KILT-E5-22M), batches of 1, 64 and 256 queries, and
@@ -439,6 +548,8 @@ def phase_parity():
         if (cfg, nq) == (SIFT1M, 64):
             errs = {"pq_lut": e_lut, "fused_hop_f32": hop["f32"],
                     "fused_hop_int8": hop["int8"], "rerank": e_rr}
+    for name, err in lut_rerank_parity().items():
+        errs[name] = max(errs[name], err)
     errs.update(adc_parity())
     return errs
 
@@ -533,7 +644,30 @@ def phase_main_path(idx, lay, queries, gt):
             gt, 10)
     log("main_path", note="shorter list", L=RERANK,
         recall10_f32=short["f32"], recall10_int8=short["int8"])
+    serving_batch_profile(fns["f32"], queries[:64])
     return launches, ids["f32"]
+
+
+def serving_batch_profile(fn, queries):
+    """One served batch (64 queries, f32, rerank 100) under torch.profiler:
+    its device ops by name. The rerank step is one rerank_kernel launch;
+    no index_select of chunk rows and no copy of their vectors remain."""
+    fn(queries, 10)                                         # warm
+    rows, ids = profile_window(lambda: fn(queries, 10))
+    n_rerank = sum(c for _, k, c in rows if "rerank_kernel" in k)
+    n_select = sum(c for _, k, c in rows
+                   if "indexselect" in k.lower().replace("_", ""))
+    n_hops = sum(c for _, k, c in rows if "hop_kernel" in k)
+    log("serve_profile", batch=len(queries), rerank=RERANK,
+        device_ops=sum(r[2] for r in rows), hop_launches=n_hops,
+        rerank_kernel_ops=n_rerank, index_select_ops=n_select,
+        device_busy_ms=f"{sum(r[0] for r in rows):.4f}",
+        profiled_launches=profiled_last(),
+        ops=json.dumps([[k[:48], round(t, 4), c] for t, k, c in rows]))
+    require(ids.shape == (len(queries), 10), "served batch shape")
+    require(n_rerank == 1 and n_select == 0,
+            f"the served batch's rerank step ran {n_rerank} rerank kernels "
+            f"and {n_select} index_select ops")
 
 
 def kernel_times(idx, lay, queries, nq: int = 64, c: int = 100):
@@ -541,7 +675,8 @@ def kernel_times(idx, lay, queries, nq: int = 64, c: int = 100):
     a serving batch of nq queries, w=4 frontier slots per query on the
     10k table, c rerank candidates per query."""
     import torch
-    from repro_torch.kernels import chunk_adc, ops
+    from repro_torch.kernels import chunk_adc, ops, pq_lut
+    from repro_torch.kernels.rerank import rerank_occupancy
     dev = idx.device
     m, ks, dsub = idx.centroids.shape
     d, R, S = lay.dim, lay.R, lay.device_stride
@@ -585,36 +720,135 @@ def kernel_times(idx, lay, queries, nq: int = 64, c: int = 100):
             **chunk_adc.hop_occupancy(lay, adc, ks, w))
     del luts
 
-    def lut_lib():
-        qs = q.reshape(nq, m, dsub).permute(1, 0, 2)        # (m, nq, dsub)
-        norms = (qs * qs).sum(-1)[:, :, None] \
-            + (cents * cents).sum(-1)[:, None, :]
-        return torch.baddbmm(norms, qs, cents.transpose(1, 2), alpha=-2.0) \
-            .permute(1, 0, 2).contiguous()
-
-    require(bool(torch.allclose(lut_lib(), lut, rtol=1e-4, atol=1e-4)),
+    require(bool(torch.allclose(lut_baddbmm(q, cents), lut, rtol=1e-4,
+                                atol=1e-4)),
             "baddbmm LUT differs from the kernel's")
+    lut_ms = lut_times(cents, {nq: q, 256: torch.from_numpy(
+        queries[:256]).to(dev)}, reps)
     out["pq_lut"] = dict(
-        ms=device_ms([lambda: ops.build_lut(q, cents)] * reps),
+        ms=lut_ms[nq],
         plain_ms=device_ms([lambda: ops.build_lut(q, cents, backend="ref")]
                            * reps),
-        library_ms=device_ms([lut_lib] * reps),
-        nbytes=nq * d * 4 + m * ks * dsub * 4 + nq * m * ks * 4,
-        ops=nq * m * ks * (6 * dsub + 3))
+        library_ms=device_ms([lambda: lut_baddbmm(q, cents)] * reps),
+        nbytes=lut_bytes_ops(nq, m, ks, dsub)[0],
+        ops=lut_bytes_ops(nq, m, ks, dsub)[1])
 
     def rr_lib(cand):
         norms = (cand * cand).sum(-1) + (q * q).sum(-1)[:, None]
         return torch.baddbmm(norms[:, :, None], cand, q[:, :, None],
                              alpha=-2.0)[:, :, 0]
 
-    out["rerank"] = dict(
+    dense = dict(
         ms=device_ms([lambda x=x: ops.rerank(q, x) for x in cands]),
         plain_ms=device_ms([lambda x=x: ops.rerank(q, x, backend="ref")
                             for x in cands]),
-        library_ms=device_ms([lambda x=x: rr_lib(x) for x in cands]),
-        nbytes=nq * d * 4 + nq * c * d * 4 + nq * c * 4,
-        ops=3 * nq * c * d)
+        library_ms=device_ms([lambda x=x: rr_lib(x) for x in cands]))
+    b_dense, _ = bound_ms(nq * d * 4 + nq * c * d * 4 + nq * c * 4,
+                          3 * nq * c * d)
+    log("rerank", form="gathered", nq=nq, c=c, d=d,
+        ms=f"{dense['ms']:.5f}", bound_ms=f"{b_dense:.6f}",
+        pct_of_bound=f"{100 * b_dense / dense['ms']:.1f}",
+        plain_ms=f"{dense['plain_ms']:.5f}",
+        baddbmm_ms=f"{dense['library_ms']:.5f}",
+        **rerank_occupancy(d, "dense"))
+    ids = [torch.randint(0, idx.n, (nq, c), generator=g, device=dev,
+                         dtype=torch.int32) for _ in range(reps)]
+    out["rerank"] = serving_rerank_times(idx, lay, q, ids, "10k")
+    for d_, src in ((128, "rows_u8"), (1024, "rows_f32"),
+                    (130, "dense_any")):
+        log("rerank", form="plan", d=d_, source=src,
+            **rerank_occupancy(d_, src))
     return out
+
+
+def lut_baddbmm(q, cents, metric="l2"):
+    """The LUT as one batched product with its norms (the library
+    yardstick of pq_lut; the port never calls it)."""
+    import torch
+    m, ks, dsub = cents.shape
+    qs = q.reshape(q.shape[0], m, dsub).permute(1, 0, 2)    # (m, nq, dsub)
+    if metric == "mips":
+        return torch.bmm(qs, cents.transpose(1, 2)).neg_() \
+            .permute(1, 0, 2).contiguous()
+    norms = (qs * qs).sum(-1)[:, :, None] \
+        + (cents * cents).sum(-1)[:, None, :]
+    return torch.baddbmm(norms, qs, cents.transpose(1, 2), alpha=-2.0) \
+        .permute(1, 0, 2).contiguous()
+
+
+def lut_bytes_ops(nq, m, ks, dsub):
+    """Bytes (queries and centroids read once, the LUT written once) and
+    operations of one pq_lut call."""
+    return (nq * m * dsub * 4 + m * ks * dsub * 4 + nq * m * ks * 4,
+            nq * m * ks * (6 * dsub + 3))
+
+
+def lut_times(cents, qs: dict, reps: int, metric="l2") -> dict:
+    """pq_lut's time at each batch (qs: nq -> queries on the card), and its
+    `[lut]` line: plan, registers, spills, CTAs an SM and the share of the
+    byte bound."""
+    from repro_torch.kernels import pq_lut
+    m, ks, dsub = cents.shape
+    times = {}
+    for nq, q in qs.items():
+        times[nq] = device_ms(
+            [lambda q=q: pq_lut.pq_lut(q, cents, metric=metric)] * reps)
+        b_ms, by = bound_ms(*lut_bytes_ops(nq, m, ks, dsub))
+        log("lut", nq=nq, m=m, dsub=dsub, ks=ks, ms=f"{times[nq]:.5f}",
+            bound_ms=f"{b_ms:.6f}", bound_by=by,
+            pct_of_bound=f"{100 * b_ms / times[nq]:.1f}",
+            **pq_lut.lut_occupancy(nq, m, dsub, ks))
+    return times
+
+
+def serving_rerank_times(idx, lay, q, ids, table: str,
+                         required: bool = True) -> dict:
+    """The serving path's rerank step on the same ids: the gather route
+    that served it before rerank_rows (clamp, index_select of the chunk
+    rows, the vector slice and its copy, the rerank kernel on the gathered
+    tensor, where) against one rerank_rows launch, each call with its own
+    ids; its `[rerank]` line, with each form's device ops (profile windows
+    that must show their launches where required). The bound reads each
+    distinct row of a call once (random ids repeat: ~4,700 distinct of
+    6,400 on the 10k table). Returns rerank_rows' times and its bound's
+    bytes and operations."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rerank import rerank_occupancy
+
+    def route(i):
+        cand = ref.gather_vecs(idx.chunk_words, i.clamp(0, idx.n - 1), lay)
+        return torch.where(i >= 0, ops.rerank(q, cand), torch.inf)
+
+    def rows(i, backend="auto"):
+        return ops.rerank_rows(q, idx.chunk_words, i, lay, backend=backend)
+
+    rows_err(rows(ids[0]), route(ids[0]))
+    nq, c = ids[0].shape
+    distinct = float(np.mean([int(torch.unique(i.clamp(0, idx.n - 1)).numel())
+                              for i in ids]))
+    t = dict(ms=device_ms([lambda i=i: rows(i) for i in ids]),
+             plain_ms=device_ms([lambda i=i: rows(i, "ref") for i in ids]),
+             library_ms=None,
+             nbytes=nq * lay.dim * 4 + nq * c * 4
+             + distinct * lay.padded_vec_bytes + nq * c * 4,
+             ops=3 * nq * c * lay.dim)
+    route_ms = device_ms([lambda i=i: route(i) for i in ids])
+    b_ms, _ = bound_ms(t["nbytes"], t["ops"])
+    n_rows = device_ops(lambda: rows(ids[0]), required)
+    rows_seen = profiled_last()
+    n_route = device_ops(lambda: route(ids[0]), required)
+    log("rerank", form="serving step", table=table, nq=nq, c=c, d=lay.dim,
+        rerank_rows_ms=f"{t['ms']:.5f}", gather_route_ms=f"{route_ms:.5f}",
+        route_over_rows=f"{route_ms / t['ms']:.2f}",
+        distinct_rows=f"{distinct:.1f}", bound_ms=f"{b_ms:.6f}",
+        pct_of_bound=f"{100 * b_ms / t['ms']:.1f}",
+        plain_ms=f"{t['plain_ms']:.5f}", rows_device_ops=n_rows,
+        rows_profiled_launches=rows_seen, route_device_ops=n_route,
+        route_profiled_launches=profiled_last(),
+        **rerank_occupancy(lay.dim, "rows_u8" if lay.data_dtype == "uint8"
+                           else "rows_f32"))
+    return t
 
 
 def phase_deployment():
@@ -695,22 +929,19 @@ def phase_deployment():
             if nq == 64:
                 search_ms_64[adc] = t_search * 1e3
     log("deploy", peak_device_bytes=torch.cuda.max_memory_allocated())
+    # the serving rerank step on the 1M table (rows mostly out of L2)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    serving_rerank_times(idx, lay, qt[:64], [torch.randint(
+        0, n, (64, RERANK), generator=g, device="cuda", dtype=torch.int32)
+        for _ in range(20)], "1m", required=False)
     # where a hop's time goes: device time by kernel over one profiled
     # search (batch 64, f32 and int8), against the unprofiled wall time of
     # the same search above (the profiler slows the host, not the device)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for adc, wall_ms in search_ms_64.items():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, _, hops = beam_search_device(
-                idx, qt[:64], k=RERANK, L=SEARCH_L, w=cfg.beamwidth,
-                max_hops=cfg.max_hops, layout=lay, metric="l2",
-                adc_dtype=adc)
-            torch.cuda.synchronize()
-        rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA), reverse=True)
+        rows, (_, _, hops) = profile_window(lambda: beam_search_device(
+            idx, qt[:64], k=RERANK, L=SEARCH_L, w=cfg.beamwidth,
+            max_hops=cfg.max_hops, layout=lay, metric="l2", adc_dtype=adc),
+            required=False)
         busy_ms = sum(r[0] for r in rows)
         hop_ms = sum(t for t, k, _ in rows if "hop_kernel" in k)
         log("profile", batch=64, adc=adc, hops=hops,
@@ -719,6 +950,7 @@ def phase_deployment():
             host_ms_per_hop=f"{(wall_ms - busy_ms) / hops:.3f}",
             device_ops_per_hop=f"{sum(r[2] for r in rows) / hops:.1f}",
             fused_hop_device_share=f"{hop_ms / busy_ms:.4f}",
+            profiled_launches=profiled_last(),
             top=json.dumps([[k[:40], round(t, 4), c]
                             for t, k, c in rows[:10]]))
 
@@ -837,19 +1069,53 @@ def adc_times(luts, codes, n_copies: int):
             library_ms=None)}
 
 
-def device_ops(fn) -> int:
-    """Device operations (kernels, copies, sets) of one call of fn, from
-    torch.profiler."""
+# (port kernels seen in a profile, launches the wrappers counted, windows
+# run, required) of every profiled window. A window is run again, up to
+# PROFILE_TRIES times in all, while its profile shows fewer of the port's
+# launches than the wrappers counted; main() requires the first two equal
+# for the windows whose counts are checked (required), and prints the rest.
+PROFILED_LAUNCHES = []
+PROFILE_TRIES = 4
+
+
+def profile_window(fn, required: bool = True):
+    """fn under torch.profiler. Returns its device rows (self device ms,
+    name, count), sorted by time, and fn's result; records how many of the
+    launches that the port's wrappers counted during the call the profile
+    shows, and how many windows it took (PROFILED_LAUNCHES)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    from repro_torch.kernels import _build
+    for tries in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+        before = sum(_build.launch_counts.values())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        launched = sum(_build.launch_counts.values()) - before
+        rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA), reverse=True)
+        seen = sum(c for _, k, c in rows
+                   if any(s in k for s in PORT_SYMBOLS))
+        if seen == launched:
+            break
+    PROFILED_LAUNCHES.append((seen, launched, tries, required))
+    return rows, out
+
+
+def profiled_last() -> str:
+    """The last window's "seen/counted in tries" (the port's launches)."""
+    return "{}/{} in {}".format(*PROFILED_LAUNCHES[-1][:3])
+
+
+def device_ops(fn, required: bool = True) -> int:
+    """Device operations (kernels, copies, sets) of one call of fn, from
+    torch.profiler."""
+    rows, _ = profile_window(fn, required)
+    return sum(r[2] for r in rows)
 
 
 ADC_REPORT_SHAPES = (("retrieval", RETRIEVAL_SHAPE), ("bulk", BULK_SHAPE),
@@ -859,8 +1125,7 @@ ADC_REPORT_SHAPES = (("retrieval", RETRIEVAL_SHAPE), ("bulk", BULK_SHAPE),
 def adc_device_ops():
     """Device ops of one pq_adc and one pq_adc_q8 call at each `[adc]`
     shape, from torch.profiler; each must be 1 (the wrappers run no torch
-    op). Run before any other profiler session of the process: after
-    earlier sessions the profiler was seen to drop these launches."""
+    op)."""
     import torch
     from repro_torch.kernels.pq_adc import pq_adc, pq_adc_q8
     dev = torch.device("cuda")
@@ -903,8 +1168,10 @@ def phase_adc_report(retrieval_times, bulk_times, ops):
         copies = [codes.clone() for _ in range(8)] if known is None else []
         for dt, fn in fns.items():
             occ = adc_occupancy(nq, m, 256, torch.uint8, dt)
+            plain = "not measured"
             if known is not None:
                 ms = known[names[dt]]["ms"]
+                plain = f"{known[names[dt]]['plain_ms']:.5f}"
             else:
                 ms = device_ms([lambda l=l, c=c: fn(l, c)
                                 for l, c in zip(luts, copies)])
@@ -915,7 +1182,7 @@ def phase_adc_report(retrieval_times, bulk_times, ops):
             b, _ = bound_ms(*adc_bytes_ops(nq, n, m))
             log("adc", shape=label, lut=dt, nq=nq, n=n, m=m,
                 ms=f"{ms:.5f}", bound_ms=f"{b:.6f}",
-                pct_of_bound=f"{100 * b / ms:.1f}",
+                pct_of_bound=f"{100 * b / ms:.1f}", plain_ms=plain,
                 one_tile_n=n_one, one_tile_ms=f"{one_ms:.5f}",
                 device_ops=ops[label, dt], code_passes=occ["n_groups"],
                 group=occ["group"], group_pad=occ["group_pad"],
@@ -1005,6 +1272,13 @@ def phase_recsys(n_requests: int = 64, k: int = 100, rerank_mult: int = 4):
     lut_ms = {be: device_ms([lambda u=u: ops.build_lut(
         u[None], cents, metric="mips", backend=be) for u in users])
         for be in ("auto", "ref")}
+    lut_ms["library"] = device_ms([lambda u=u: lut_baddbmm(
+        u[None], cents, "mips") for u in users])
+    require(bool(torch.allclose(lut_baddbmm(users, cents, "mips"),
+                                luts[:, 0], rtol=1e-4, atol=1e-4)),
+            "bmm LUT differs from the kernel's")
+    lut_times(cents, {1: users[:1]}, 20, "mips")
+    lut_bound, _ = bound_ms(*lut_bytes_ops(1, m, 256, cfg.embed_dim // m))
     # the selection over 1M ADC distances: the stable sort the path uses,
     # beside an unstable topk (ties in no promised order) for its cost
     sort_ms = device_ms([lambda d=d: torch.sort(d, stable=True)
@@ -1012,18 +1286,12 @@ def phase_recsys(n_requests: int = 64, k: int = 100, rerank_mult: int = 4):
     topk_ms = device_ms([lambda d=d: torch.topk(d, k * rerank_mult,
                                                 largest=False)
                          for d in d_pq])
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     serve(batches[0])[0].cpu()
     one_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        serve(batches[0])[0].cpu()
-    rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+    rows, _ = profile_window(lambda: serve(batches[0])[0].cpu(),
+                             required=False)
     busy_ms = sum(r[0] for r in rows)
     lat_ms = np.array(lat) * 1e3
     log("recsys", model=cfg.name, shape=shape.name, candidates=n,
@@ -1036,12 +1304,15 @@ def phase_recsys(n_requests: int = 64, k: int = 100, rerank_mult: int = 4):
         pq_lut_err=err_lut, pq_adc_err=err_adc,
         pq_lut_ms=f"{lut_ms['auto']:.5f}",
         pq_lut_plain_ms=f"{lut_ms['ref']:.5f}",
+        pq_lut_bmm_ms=f"{lut_ms['library']:.5f}",
+        pq_lut_bound_ms=f"{lut_bound:.6f}",
         sort_1m_ms=f"{sort_ms:.4f}", topk400_1m_ms=f"{topk_ms:.4f}",
         launches=json.dumps(launches, separators=(",", ":")))
     log("recsys_profile", request_ms=f"{one_ms:.3f}",
         device_busy_ms=f"{busy_ms:.4f}",
         device_idle_share=f"{1 - busy_ms / one_ms:.4f}",
         device_ops=sum(r[2] for r in rows),
+        profiled_launches=profiled_last(),
         top=json.dumps([[key[:40], round(t, 4), c]
                         for t, key, c in rows[:8]]))
     require(launches["pq_lut"] == n_requests
@@ -1122,6 +1393,11 @@ def phase_bulk_adc(nq: int = 8, n: int = 1_000_000, m: int = 16):
 
 
 def main() -> int:
+    # PyTorch tears CUPTI down after each profiler window and sets it up
+    # again lazily; the next window then lost its first launch. Kept up,
+    # the windows show their launches (checked below).
+    os.environ["TEARDOWN_CUPTI"] = "0"
+    os.environ["DISABLE_CUPTI_LAZY_REINIT"] = "1"
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1129,9 +1405,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_env()
-    adc_ops = adc_device_ops()
     errs = phase_parity()
     idx, lay, queries, gt, arrays = build_index_10k()
+    # the first profiler window: after the build's host-only minutes (see
+    # the module docstring)
+    adc_ops = adc_device_ops()
     launches, served = phase_main_path(idx, lay, queries, gt)
     times = kernel_times(idx, lay, queries)
     phase_diskann(arrays, idx, lay, queries, gt, served)
@@ -1144,6 +1422,12 @@ def main() -> int:
     bulk_launches, bulk, bulk_errs = phase_bulk_adc()
     torch.cuda.empty_cache()
     phase_adc_report(adc, bulk, adc_ops)
+    log("profiler", windows=len(PROFILED_LAUNCHES),
+        complete=sum(s == n for s, n, _, _ in PROFILED_LAUNCHES),
+        first_try=sum(t == 1 for _, _, t, _ in PROFILED_LAUNCHES),
+        windows_seen_counted_tries_required=json.dumps(PROFILED_LAUNCHES))
+    require(all(s == n for s, n, _, req in PROFILED_LAUNCHES if req),
+            f"a checked profile lost launches: {PROFILED_LAUNCHES}")
     # pq_lut runs on the search and the retrieval paths: its row keeps the
     # search shape's times and takes the worse error of the two paths.
     # pq_adc's row is at the retrieval shape, pq_adc_q8's at the bulk

@@ -36,8 +36,11 @@ _SIGNATURES = {
     "aisaq_fused_hop": [_P, _LL, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P, _I,
                         _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "aisaq_hop_occupancy": [_I, _I, _I, _P],
-    "aisaq_pq_lut": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
+    "aisaq_pq_lut": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P],
+    "aisaq_lut_occupancy": [_I, _I, _I, _I, _I, _P],
     "aisaq_rerank": [_P, _I, _P, _LL, _I, _I, _I, _P, _P],
+    "aisaq_rerank_rows": [_P, _I, _P, _LL, _I, _P, _I, _I, _I, _I, _P, _P],
+    "aisaq_rerank_occupancy": [_I, _I, _P],
     "aisaq_pq_adc": [_P, _LL, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                      _I, _I, _I, _P, _P],
     "aisaq_adc_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

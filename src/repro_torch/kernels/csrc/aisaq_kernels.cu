@@ -12,9 +12,11 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace cg = cooperative_groups;
@@ -448,69 +450,346 @@ __global__ void __launch_bounds__(kHopThreads)
 // pq_lut — replaces repro/kernels/pq_lut.py:_lut_kernel (pallas_call in
 // pq_lut.py:pq_lut).
 //
-// One thread per output (q, j, k), a loop over dsub and the expanded-form
-// epilogue: ||q_j||^2 - 2 q_j.c_jk + ||c_jk||^2 (l2), -q_j.c_jk (mips).
-// Bound: bytes — it writes nq*m*ks*4 B (128 KB per query at SIFT1M widths)
-// from a few KB of input; consecutive threads write consecutive k, so the
-// stores coalesce and the centroid reads are contiguous.
+// out[q, j, k] = ||q_j||^2 - 2 q_j.c_jk + ||c_jk||^2 (l2) or -q_j.c_jk
+// (mips), q_j the j-th dsub-slab of query q. Bound: bytes. The kernel writes
+// nq*m*ks*4 B (128 KB a query at SIFT1M widths) from a few KB of input: it
+// is a stream of stores.
+//
+// A CTA of 128 threads owns a block of jb subspaces and a block of qb
+// queries (grid: query blocks x subspace blocks). It copies the block's
+// centroids (contiguous, jb*ks*dsub floats: 2-16 KB at ks = 256) into
+// shared memory with coalesced 16-byte loads, and the block's query slabs
+// beside them. Thread (jl, tk) then owns
+// the four centroids k0 = 4 tk .. k0+3 of subspace j0 + jl: it takes their
+// dsub values into registers (dsub 16-byte shared loads, conflict-free) and
+// sums their norms ||c_jk||^2 once; ||q_j||^2 is summed once per (q, j)
+// into shared memory. The thread then walks the CTA's queries, reading each
+// slab by broadcast, and writes each query's four entries as one 16-byte
+// store: a warp writes 512 contiguous bytes, with the default L2 policy, so
+// the first hop finds its LUT in L2. tpr, the threads of a subspace, is a
+// power of two, so the index math is shifts and masks in 32 bits; only an
+// output row's address is 64-bit.
+//
+// Numerics are the plain version's: cross, qn and cn each accumulate over
+// e = 0..dsub-1 in order, one FMA a step. No tensor cores: the contraction
+// is dsub (<= 8 at the repo's widths) deep, and TF32 would round the LUT
+// whose exact ties the int8 path depends on.
+// DSUB is dsub at compile time (1, 2, 4, 5 and 8, the repo's widths, where
+// ks % 4 == 0 and the centroids are 16-byte aligned); DSUB = 0 takes any
+// dsub and reads the centroid values from global memory (L1) in the loop.
 // ---------------------------------------------------------------------------
 
-__global__ void pq_lut_kernel(const float* __restrict__ qs, int nq,
-                              const float* __restrict__ cent, int m, int ks,
-                              int dsub, int mips, float* __restrict__ out) {
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long total = (long long)nq * m * ks;
-  if (t >= total) return;
-  const int k = (int)(t % ks);
-  const long long qj = t / ks;
-  const int j = (int)(qj % m);
-  const long long qi = qj / m;
-  const float* qv = qs + (qi * m + j) * dsub;
-  const float* c = cent + ((long long)j * ks + k) * dsub;
-  float cross = 0.f, qn = 0.f, cn = 0.f;
-  for (int e = 0; e < dsub; ++e) {
-    const float a = __ldg(qv + e), b = __ldg(c + e);
-    cross += a * b;
-    qn += a * a;
-    cn += b * b;
+constexpr int kLutThreads = 128;      // jb * tpr
+constexpr int kLutMaxQb = 8;          // queries a CTA
+constexpr int kLutMaxSmem = 48 * 1024;
+
+template <int DSUB>
+__global__ void __launch_bounds__(kLutThreads)
+    pq_lut_kernel(const float* __restrict__ qs, int nq, int d,
+                  const float* __restrict__ cent, int m, int ks, int dsub,
+                  int lg_tpr, int qb, int mips, int vec_store,
+                  float* __restrict__ out) {
+  constexpr bool kStaged = DSUB > 0;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int t = threadIdx.x;
+  const int jb = kLutThreads >> lg_tpr;
+  const int jl = t >> lg_tpr;
+  const int k0 = (t & ((1 << lg_tpr) - 1)) * 4;
+  const int j0 = blockIdx.y * jb;
+  const int jn = min(jb, m - j0);
+  const int j = j0 + jl;
+  const int q0 = blockIdx.x * qb;
+  const int nqb = min(qb, nq - q0);
+  const bool active = jl < jn && k0 < ks;
+  // shared: [kStaged: the jb*ks*dsub centroids] [qb][jb*dsub] query
+  // slabs, [qb][jb] their norms
+  float* cstage = reinterpret_cast<float*>(smem);
+  float* qslab = cstage + (kStaged ? jb * ks * DSUB : 0);
+  float* qnorm = qslab + qb * jb * dsub;
+  // Thread i < nqb*jb loads slab i = (ql, jj) of the block's queries and
+  // sums its ||q_j||^2; every thread copies its share of the centroids. All
+  // of a thread's loads are issued before its first store to shared
+  // memory, so their latencies overlap, and one barrier ends the staging.
+  const int lg_jb = __ffs(jb) - 1;              // jb is a power of two
+  const bool qload = t < nqb * jb && (t & (jb - 1)) < jn;
+  const float* qa =
+      qs + (q0 + (t >> lg_jb)) * d + (j0 + (t & (jb - 1))) * dsub;
+  float qv[kStaged ? DSUB : 1];
+  if constexpr (kStaged) {
+    if (qload) {
+#pragma unroll
+      for (int e = 0; e < DSUB; ++e) qv[e] = __ldg(qa + e);
+    }
+    // the block's centroids are contiguous: coalesced 16-byte loads, at
+    // most DSUB a thread (jb * ks <= 4 * kLutThreads)
+    const int n4 = jn * ks * DSUB / 4;
+    const float4* src =
+        reinterpret_cast<const float4*>(cent + (size_t)j0 * ks * DSUB);
+    float4 cv[DSUB];
+#pragma unroll
+    for (int r = 0; r < DSUB; ++r)
+      if (t + r * kLutThreads < n4) cv[r] = __ldg(src + t + r * kLutThreads);
+#pragma unroll
+    for (int r = 0; r < DSUB; ++r)
+      if (t + r * kLutThreads < n4)
+        reinterpret_cast<float4*>(cstage)[t + r * kLutThreads] = cv[r];
   }
-  out[t] = mips ? -cross : (qn - 2.f * cross + cn);
+  if (qload) {
+    float qn = 0.f;
+    if constexpr (kStaged) {
+#pragma unroll
+      for (int e = 0; e < DSUB; ++e) {
+        qslab[t * DSUB + e] = qv[e];
+        qn += qv[e] * qv[e];
+      }
+    } else {
+      for (int e = 0; e < dsub; ++e) {
+        const float x = __ldg(qa + e);
+        qslab[t * dsub + e] = x;
+        qn += x * x;
+      }
+    }
+    qnorm[t] = qn;
+  }
+  // blocks of more slabs than threads (ks <= 16 at qb = 8)
+  for (int i = t + kLutThreads; i < nqb * jb; i += kLutThreads) {
+    if ((i & (jb - 1)) >= jn) continue;
+    const float* a =
+        qs + (q0 + (i >> lg_jb)) * d + (j0 + (i & (jb - 1))) * dsub;
+    float qn = 0.f;
+    for (int e = 0; e < dsub; ++e) {
+      const float x = __ldg(a + e);
+      qslab[i * dsub + e] = x;
+      qn += x * x;
+    }
+    qnorm[i] = qn;
+  }
+  __syncthreads();
+  // the thread's four centroids in registers, c[kk * DSUB + e]
+  float c[kStaged ? 4 * DSUB : 1];
+  float cn[4] = {0.f, 0.f, 0.f, 0.f};
+  const float* cbase = cent + ((size_t)j * ks + k0) * dsub;
+  if (active) {
+    if constexpr (kStaged) {
+      const float4* c4 =
+          reinterpret_cast<const float4*>(cstage + (jl * ks + k0) * DSUB);
+#pragma unroll
+      for (int i = 0; i < DSUB; ++i) {
+        const float4 v = c4[i];
+        c[4 * i] = v.x;
+        c[4 * i + 1] = v.y;
+        c[4 * i + 2] = v.z;
+        c[4 * i + 3] = v.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < DSUB; ++e)
+          cn[kk] += c[kk * DSUB + e] * c[kk * DSUB + e];
+    } else {
+      for (int kk = 0; kk < 4 && k0 + kk < ks; ++kk)
+        for (int e = 0; e < dsub; ++e) {
+          const float b = __ldg(cbase + kk * dsub + e);
+          cn[kk] += b * b;
+        }
+    }
+  }
+  for (int ql = 0; ql < nqb; ++ql) {
+    float v[4];
+    if (active) {
+      const float* a = qslab + (ql * jb + jl) * dsub;
+      float cross[4] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (kStaged) {
+#pragma unroll
+        for (int e = 0; e < DSUB; ++e) {
+          const float x = a[e];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) cross[kk] += x * c[kk * DSUB + e];
+        }
+      } else {
+        for (int e = 0; e < dsub; ++e) {
+          const float x = a[e];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            if (k0 + kk < ks) cross[kk] += x * __ldg(cbase + kk * dsub + e);
+        }
+      }
+      const float qn = qnorm[ql * jb + jl];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        v[kk] = mips ? -cross[kk] : qn - 2.f * cross[kk] + cn[kk];
+    }
+    if (active) {
+      float* row = out + ((size_t)(q0 + ql) * m + j) * ks;
+      if (vec_store) {
+        *reinterpret_cast<float4*>(row + k0) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          if (k0 + kk < ks) row[k0 + kk] = v[kk];
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
 // rerank — replaces repro/kernels/rerank.py:_rerank_kernel (pallas_call in
 // rerank.py:rerank).
 //
-// One warp per (q, c), lanes over d, expanded form:
-// ||c||^2 - 2 c.q + ||q||^2 (l2), -c.q (mips). Candidates are (nq, C, d)
-// (cand_qstride = C*d, a set per query) or (C, d) shared by all queries
-// (cand_qstride = 0), so a whole serving batch is one launch.
-// Bound: bytes — each candidate vector is read once, with 2 flops per
-// element; a warp reads 128 contiguous bytes per step.
+// Exact distances in the expanded form, as the TPU kernel computes them:
+// ||c||^2 - 2 c.q + ||q||^2 (l2), -c.q (mips). One template, four sources
+// of the candidate vectors:
+//   kRrDense     f32 (nq, C, d), or (C, d) shared by all queries (qstride
+//                0), rows 16-byte aligned (d % 4 == 0): float4 loads;
+//   kRrDenseAny  the same at any d or alignment: scalar loads;
+//   kRrRowsF32   chunk-table rows by id (rerank_rows): the vector's float32
+//                words at the row's start; float4 loads (rows are 128-byte
+//                aligned, and any d's last float4 ends inside the row);
+//   kRrRowsU8    the same for uint8 vectors packed four to a word: one
+//                32-bit (uchar4) load a lane.
+// Rows: an id clamps to n_rows-1 above, and an id < 0 gives +inf and loads
+// nothing (what the engine's clamp and torch.where did around the gather).
+//
+// Bound: bytes — each candidate vector is read once, for at most 2 flops a
+// byte. One warp a candidate, lane l holding elements 4(32p + l) .. +3 of
+// pass p, so a warp-wide load covers 512 contiguous bytes (f32); d = 128 is
+// one float4 a lane, KILT's d = 1024 eight. rerank_u(source) candidates
+// are in flight a warp (unrolled, independent loads). The query's elements
+// sit in registers (NP passes: the whole query up to d = 128 NP, longer
+// ones in tiles of NP passes) and each warp sums ||q||^2 from them: once
+// for its rerank_u(source) candidates, so once a candidate from a dense
+// tensor. Summing it once a query needs one CTA a query; that layout
+// measured slower (PERF.md §6: the rows of 64 queries sit on 64 SMs, whose
+// loads in flight then bound the call), so these CTAs stay small and many.
+// 2-D grid (candidate blocks x queries) and 32-bit index math; 64-bit only
+// for a row's address (a 1M-row table spans 7.9 GB). No tensor cores:
+// these are nq independent GEMVs, memory-bound.
 // ---------------------------------------------------------------------------
 
-__global__ void rerank_kernel(const float* __restrict__ q, int nq,
-                              const float* __restrict__ cand,
-                              long long cand_qstride, int C, int d, int mips,
-                              float* __restrict__ out) {
-  const long long gw =
-      (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (gw >= (long long)nq * C) return;         // warp-uniform
-  const long long qi = gw / C, ci = gw % C;
-  const float* qv = q + qi * d;
-  const float* cv = cand + qi * cand_qstride + ci * d;
-  float cross = 0.f, qn = 0.f, cn = 0.f;
-  for (int t = lane; t < d; t += 32) {
-    const float a = __ldg(qv + t), b = __ldg(cv + t);
-    cross += a * b;
-    qn += a * a;
-    cn += b * b;
+constexpr int kRrWarps = 4;
+constexpr int kRrThreads = kRrWarps * 32;
+constexpr int kRrMaxGridY = 65535;
+enum { kRrDense = 0, kRrDenseAny = 1, kRrRowsF32 = 2, kRrRowsU8 = 3 };
+// candidates in flight a warp: two by id (their id loads overlap), one
+// from a dense tensor (more warps in flight measured faster there)
+__host__ __device__ constexpr int rerank_u(int src) {
+  return src >= kRrRowsF32 ? 2 : 1;
+}
+
+struct RerankArgs {
+  const float* q;           // (nq, d)
+  const void* src;          // dense: f32 candidates; rows: the i32 table
+  const int32_t* ids;       // rows: (nq, C)
+  long long qstride;        // dense: floats from one query's set to the next
+  long long n_rows;
+  int stride_w, nq, C, d, mips;
+  float* out;               // (nq, C)
+};
+
+// elements 4s .. 4s+3 of the candidate at base, 0 past d (4s < d)
+template <int kSrc>
+__device__ __forceinline__ float4 rr_load(const void* base, int s, int d) {
+  const int n = d - 4 * s;
+  float4 v;
+  if constexpr (kSrc == kRrRowsU8) {
+    const unsigned int w = __ldg(static_cast<const unsigned int*>(base) + s);
+    v = make_float4((float)(w & 0xffu), (float)((w >> 8) & 0xffu),
+                    (float)((w >> 16) & 0xffu), (float)(w >> 24));
+  } else if constexpr (kSrc == kRrDenseAny) {
+    const float* p = static_cast<const float*>(base) + 4 * s;
+    return make_float4(__ldg(p), n > 1 ? __ldg(p + 1) : 0.f,
+                       n > 2 ? __ldg(p + 2) : 0.f,
+                       n > 3 ? __ldg(p + 3) : 0.f);
+  } else {
+    v = __ldg(static_cast<const float4*>(base) + s);
   }
-  cross = warp_sum(cross);
-  qn = warp_sum(qn);
-  cn = warp_sum(cn);
-  if (lane == 0) out[gw] = mips ? -cross : (cn - 2.f * cross + qn);
+  if (n < 4) {                 // the row's next words are not the vector's
+    v.w = 0.f;
+    if (n < 3) v.z = 0.f;
+    if (n < 2) v.y = 0.f;
+  }
+  return v;
+}
+
+template <int kSrc, int NP>
+__global__ void __launch_bounds__(kRrThreads)
+    rerank_kernel(const RerankArgs a) {
+  constexpr bool kRows = kSrc == kRrRowsF32 || kSrc == kRrRowsU8;
+  constexpr int kRrU = rerank_u(kSrc);
+  const int lane = threadIdx.x & 31;
+  const int c0 = (blockIdx.x * kRrWarps + (threadIdx.x >> 5)) * kRrU;
+  if (c0 >= a.C) return;                            // warp-uniform
+  const int nslot = (a.d + 3) >> 2;                 // 4-element slots
+  for (int qi = blockIdx.y; qi < a.nq; qi += gridDim.y) {
+    const void* base[kRrU];
+    bool ok[kRrU];
+#pragma unroll
+    for (int u = 0; u < kRrU; ++u) {
+      const int ci = c0 + u;
+      ok[u] = ci < a.C;
+      if constexpr (kRows) {
+        const int id = ok[u] ? __ldg(a.ids + qi * a.C + ci) : -1;
+        ok[u] = id >= 0;
+        const long long row = ok[u] ? min((long long)id, a.n_rows - 1) : 0;
+        base[u] = static_cast<const int32_t*>(a.src) + row * a.stride_w;
+      } else {
+        base[u] = static_cast<const float*>(a.src) + qi * a.qstride +
+                  (long long)(ok[u] ? ci : 0) * a.d;
+      }
+    }
+    const float* qrow = a.q + qi * a.d;
+    float cross[kRrU], cn[kRrU], qn = 0.f;
+#pragma unroll
+    for (int u = 0; u < kRrU; ++u) cross[u] = cn[u] = 0.f;
+    for (int s0 = 0; s0 < nslot; s0 += 32 * NP) {   // one tile for d <= 128 NP
+      float4 qr[NP];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int s = s0 + 32 * p + lane;
+        qr[p] = s < nslot ? rr_load<kRrDenseAny>(qrow, s, a.d)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+        qn += qr[p].x * qr[p].x;
+        qn += qr[p].y * qr[p].y;
+        qn += qr[p].z * qr[p].z;
+        qn += qr[p].w * qr[p].w;
+      }
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int s = s0 + 32 * p + lane;
+        if (s >= nslot) break;
+#pragma unroll
+        for (int u = 0; u < kRrU; ++u) {
+          if (!ok[u]) continue;
+          const float4 v = rr_load<kSrc>(base[u], s, a.d);
+          cross[u] += v.x * qr[p].x;
+          cross[u] += v.y * qr[p].y;
+          cross[u] += v.z * qr[p].z;
+          cross[u] += v.w * qr[p].w;
+          cn[u] += v.x * v.x;
+          cn[u] += v.y * v.y;
+          cn[u] += v.z * v.z;
+          cn[u] += v.w * v.w;
+        }
+      }
+    }
+    qn = warp_sum(qn);
+    float my_cross = 0.f, my_cn = 0.f;
+    bool my_ok = false;
+#pragma unroll
+    for (int u = 0; u < kRrU; ++u) {
+      const float x = warp_sum(cross[u]), y = warp_sum(cn[u]);
+      if (lane == u) {
+        my_cross = x;
+        my_cn = y;
+        my_ok = ok[u];
+      }
+    }
+    if (lane < kRrU && c0 + lane < a.C)
+      a.out[qi * a.C + c0 + lane] =
+          !my_ok ? INFINITY
+                 : (a.mips ? -my_cross : my_cn - 2.f * my_cross + qn);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -565,7 +844,6 @@ __global__ void rerank_kernel(const float* __restrict__ q, int nq,
 // pq_adc.py:adc_plan and is checked here by adc_plan_ok.
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 256;
 constexpr int kAdcConsumerWarps = 8;
 constexpr int kAdcConsumers = kAdcConsumerWarps * 32;
 constexpr int kAdcThreads = kAdcConsumers + 32;   // + the producer warp
@@ -1354,6 +1632,113 @@ int hop_occupancy(int smem_bytes, int w, int* out) {
   return (int)ce;
 }
 
+// pq_lut's plan: tpr threads a subspace (a power of two, 4 entries each),
+// jb = 128 / tpr subspaces and qb queries a CTA, DSUB (0: any dsub), and
+// the dynamic shared memory. Returns 0 where the shapes do not fit the
+// kernel.
+struct LutPlan {
+  int lg_tpr, jb, qb, dsub_t, smem, grid_x, grid_y;
+};
+
+int lut_plan(int nq, int d, int m, int ks, int dsub, int cent_aligned,
+             LutPlan* p) {
+  if (nq < 0 || m < 1 || ks < 1 || dsub < 1 || (long long)m * dsub != d ||
+      (long long)nq * d >= INT_MAX || (long long)nq * m >= INT_MAX)
+    return 0;
+  int lg = 0;
+  while ((4 << lg) < ks) ++lg;
+  if ((1 << lg) > kLutThreads) return 0;          // ks > 512
+  p->lg_tpr = lg;
+  p->jb = kLutThreads >> lg;
+  const bool staged = ks % 4 == 0 && cent_aligned &&
+                      (dsub == 1 || dsub == 2 || dsub == 4 || dsub == 5 ||
+                       dsub == 8);
+  p->dsub_t = staged ? dsub : 0;
+  const int fixed = staged ? p->jb * ks * dsub * 4 : 0;
+  // max(4, dsub) queries a CTA (up to 8: each CTA reads its centroids
+  // once, so wider subspaces want more queries), fewer where that leaves
+  // less than two CTAs an SM, or where the slabs do not fit
+  p->grid_y = (m + p->jb - 1) / p->jb;
+  p->qb = std::max(1, std::min({nq, std::max(4, dsub), kLutMaxQb}));
+  while (p->qb > 1 &&
+         ((long long)(nq + p->qb - 1) / p->qb * p->grid_y < 2 * sm_count() ||
+          fixed + p->qb * p->jb * (dsub + 1) * 4 > kLutMaxSmem))
+    --p->qb;
+  p->smem = fixed + p->qb * p->jb * (dsub + 1) * 4;
+  p->grid_x = (nq + p->qb - 1) / p->qb;
+  return p->smem <= kLutMaxSmem && p->grid_y <= 65535;
+}
+
+using LutKernel = void (*)(const float*, int, int, const float*, int, int,
+                           int, int, int, int, int, float*);
+
+LutKernel lut_kernel_for(int dsub_t) {
+  switch (dsub_t) {
+    case 1: return pq_lut_kernel<1>;
+    case 2: return pq_lut_kernel<2>;
+    case 4: return pq_lut_kernel<4>;
+    case 5: return pq_lut_kernel<5>;
+    case 8: return pq_lut_kernel<8>;
+    default: return pq_lut_kernel<0>;
+  }
+}
+
+// the rerank's passes a lane holds in registers: 1, 2, 4 or 8 (128 NP
+// elements of the query); longer queries go in tiles of 8 passes
+int rerank_np(int d) {
+  const int passes = ((d + 3) / 4 + 31) / 32;
+  return passes <= 1 ? 1 : passes <= 2 ? 2 : passes <= 4 ? 4 : 8;
+}
+
+using RerankKernel = void (*)(const RerankArgs);
+
+template <int kSrc>
+RerankKernel rerank_kernel_np(int np) {
+  switch (np) {
+    case 1: return rerank_kernel<kSrc, 1>;
+    case 2: return rerank_kernel<kSrc, 2>;
+    case 4: return rerank_kernel<kSrc, 4>;
+    default: return rerank_kernel<kSrc, 8>;
+  }
+}
+
+RerankKernel rerank_kernel_for(int src, int d) {
+  const int np = rerank_np(d);
+  switch (src) {
+    case kRrDense: return rerank_kernel_np<kRrDense>(np);
+    case kRrDenseAny: return rerank_kernel_np<kRrDenseAny>(np);
+    case kRrRowsF32: return rerank_kernel_np<kRrRowsF32>(np);
+    default: return rerank_kernel_np<kRrRowsU8>(np);
+  }
+}
+
+int launch_rerank(int src, const RerankArgs& a, cudaStream_t stream) {
+  if (a.nq < 0 || a.C < 0 || a.d < 1 ||
+      (long long)a.nq * a.C >= INT_MAX || (long long)a.nq * a.d >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (a.nq == 0 || a.C == 0) return (int)cudaGetLastError();
+  const int per_cta = kRrWarps * rerank_u(src);
+  const dim3 grid((a.C + per_cta - 1) / per_cta,
+                  std::min(a.nq, kRrMaxGridY));
+  const RerankKernel fn = rerank_kernel_for(src, a.d);
+  fn<<<grid, kRrThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// out: registers a thread, static shared bytes, dynamic shared bytes, local
+// (spill) bytes a thread, resident CTAs an SM
+int kernel_occupancy(const void* fn, int threads, int smem, int* out) {
+  cudaFuncAttributes at;
+  cudaError_t e = cudaFuncGetAttributes(&at, fn);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = at.numRegs;
+  out[1] = (int)at.sharedSizeBytes;
+  out[2] = smem;
+  out[3] = (int)at.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[4], fn, threads, (size_t)smem);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1390,31 +1775,80 @@ int aisaq_hop_trace(void* dst, int clear) {
 }
 #endif
 
-int aisaq_pq_lut(const void* qs, int nq, const void* cent, int m, int ks,
-                 int dsub, int mips, void* out, void* stream) {
-  const long long total = (long long)nq * m * ks;
-  if (total > 0) {
-    const long long blocks = (total + kThreads - 1) / kThreads;
-    pq_lut_kernel<<<(unsigned)blocks, kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(qs), nq, static_cast<const float*>(cent),
-        m, ks, dsub, mips, static_cast<float*>(out));
-  }
+int aisaq_pq_lut(const void* qs, int nq, int d, const void* cent, int m,
+                 int ks, int dsub, int mips, void* out, void* stream) {
+  LutPlan p;
+  if (!lut_plan(nq, d, m, ks, dsub,
+                (reinterpret_cast<uintptr_t>(cent) & 15) == 0, &p))
+    return (int)cudaErrorInvalidValue;
+  if (nq == 0) return (int)cudaGetLastError();
+  const int vec = ks % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  lut_kernel_for(p.dsub_t)<<<dim3(p.grid_x, p.grid_y), kLutThreads, p.smem,
+       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(qs), nq, d, static_cast<const float*>(cent),
+      m, ks, dsub, p.lg_tpr, p.qb, mips, vec, static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+// out: registers, static smem, dynamic smem, local bytes, CTAs an SM,
+// grid x (query blocks), grid y (subspace blocks), qb, jb, DSUB (0: any)
+int aisaq_lut_occupancy(int nq, int d, int m, int ks, int dsub, void* out) {
+  LutPlan p;
+  if (!lut_plan(nq, d, m, ks, dsub, 1, &p))
+    return (int)cudaErrorInvalidValue;
+  int* o = static_cast<int*>(out);
+  const int e = kernel_occupancy(
+      reinterpret_cast<const void*>(lut_kernel_for(p.dsub_t)), kLutThreads,
+      p.smem, o);
+  o[5] = p.grid_x;
+  o[6] = p.grid_y;
+  o[7] = p.qb;
+  o[8] = p.jb;
+  o[9] = p.dsub_t;
+  return e;
 }
 
 int aisaq_rerank(const void* q, int nq, const void* cand,
                  long long cand_qstride, int C, int d, int mips, void* out,
                  void* stream) {
-  const long long threads = (long long)nq * C * 32;
-  if (threads > 0) {
-    const long long blocks = (threads + kThreads - 1) / kThreads;
-    rerank_kernel<<<(unsigned)blocks, kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(q), nq, static_cast<const float*>(cand),
-        cand_qstride, C, d, mips, static_cast<float*>(out));
-  }
-  return (int)cudaGetLastError();
+  RerankArgs a = {static_cast<const float*>(q), cand, nullptr,
+                  cand_qstride, 0, 0, nq, C, d, mips,
+                  static_cast<float*>(out)};
+  // float4 loads where every candidate row starts 16-byte aligned
+  const bool vec4 = d % 4 == 0 && cand_qstride % 4 == 0 &&
+                    (reinterpret_cast<uintptr_t>(cand) & 15) == 0;
+  return launch_rerank(vec4 ? kRrDense : kRrDenseAny, a,
+                       static_cast<cudaStream_t>(stream));
+}
+
+int aisaq_rerank_rows(const void* q, int nq, const void* words,
+                      long long n_rows, int stride_w, const void* ids, int C,
+                      int d, int u8, int mips, void* out, void* stream) {
+  // rows 16-byte aligned, and the vector's last 16-byte (f32) or 4-byte
+  // (u8) load inside the row
+  const int slots = (d + 3) / 4;
+  if (n_rows < 1 || stride_w % 4 || (u8 ? slots : 4 * slots) > stride_w ||
+      (reinterpret_cast<uintptr_t>(words) & 15))
+    return (int)cudaErrorInvalidValue;
+  RerankArgs a = {static_cast<const float*>(q), words,
+                  static_cast<const int32_t*>(ids), 0, n_rows, stride_w, nq,
+                  C, d, mips, static_cast<float*>(out)};
+  return launch_rerank(u8 ? kRrRowsU8 : kRrRowsF32, a,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// src: 0 dense (float4), 1 dense (scalar), 2 f32 rows, 3 u8 rows. out:
+// registers, static smem, dynamic smem, local bytes, CTAs an SM, passes a
+// lane holds (NP), candidates a CTA
+int aisaq_rerank_occupancy(int src, int d, void* out) {
+  if (src < 0 || src > 3 || d < 1) return (int)cudaErrorInvalidValue;
+  int* o = static_cast<int*>(out);
+  const int e = kernel_occupancy(
+      reinterpret_cast<const void*>(rerank_kernel_for(src, d)), kRrThreads,
+      0, o);
+  o[5] = rerank_np(d);
+  o[6] = kRrWarps * rerank_u(src);
+  return e;
 }
 
 int aisaq_pq_adc(const void* codes, long long n, int m, int codes_i32,

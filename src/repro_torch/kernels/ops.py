@@ -16,6 +16,7 @@ from repro_torch.kernels.chunk_adc import fused_hop as _fused_hop_kernel
 from repro_torch.kernels.pq_adc import pq_adc as _pq_adc_kernel
 from repro_torch.kernels.pq_lut import pq_lut as _pq_lut_kernel
 from repro_torch.kernels.rerank import rerank as _rerank_kernel
+from repro_torch.kernels.rerank import rerank_rows as _rerank_rows_kernel
 
 BACKENDS = ("auto", "ref")
 
@@ -68,3 +69,16 @@ def rerank(queries: torch.Tensor, cand: torch.Tensor, *, metric: str = "l2",
     if backend == "ref":
         return _ref.rerank_ref(queries, cand, metric=metric)
     return _rerank_kernel(queries, cand, metric=metric)
+
+
+def rerank_rows(queries: torch.Tensor, chunk_words: torch.Tensor,
+                ids: torch.Tensor, layout: ChunkLayout, *,
+                metric: str = "l2", backend: str = "auto") -> torch.Tensor:
+    """Exact distances of (nq, r) candidate ids read from the chunk rows
+    -> (nq, r); ids < 0 give +inf."""
+    _check(backend)
+    if backend == "ref":
+        return _ref.rerank_rows_ref(queries, chunk_words, ids, layout,
+                                    metric=metric)
+    return _rerank_rows_kernel(queries, chunk_words, ids, layout,
+                               metric=metric)

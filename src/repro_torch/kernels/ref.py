@@ -46,18 +46,23 @@ def unpack_u8(words: torch.Tensor) -> torch.Tensor:
     return b.reshape(words.shape[:-1] + (words.shape[-1] * 4,))
 
 
+def parse_vec_words(words: torch.Tensor, layout: ChunkLayout):
+    """words (..., >= padded_vec_bytes/4) int32, a chunk row's leading
+    words -> the vector, (..., dim) f32."""
+    d = layout.dim
+    if layout.data_dtype == "uint8":
+        return unpack_u8(words[..., :(d + 3) // 4])[..., :d].float()
+    return words[..., :d].contiguous().view(torch.float32)
+
+
 def parse_chunks_words(words: torch.Tensor, layout: ChunkLayout):
     """words (..., stride/4) int32 rows gathered from the chunk table.
 
     Returns (vec f32 (..., dim), deg (...,), ids (..., R) i32,
     codes (..., R, m) i32 or None for diskann-mode layouts).
     """
-    d, R, m = layout.dim, layout.R, layout.pq_m
-    if layout.data_dtype == "uint8":
-        nw = (d + 3) // 4
-        vec = unpack_u8(words[..., :nw])[..., :d].float()
-    else:
-        vec = words[..., :d].contiguous().view(torch.float32)
+    R, m = layout.R, layout.pq_m
+    vec = parse_vec_words(words, layout)
     deg = words[..., layout.dev_off_deg // 4]
     o = layout.dev_off_ids // 4
     ids = words[..., o:o + R]
@@ -230,3 +235,24 @@ def rerank_ref(queries: torch.Tensor, cand: torch.Tensor, *,
         return -(cand * q_b).sum(-1)
     diff = cand - q_b
     return (diff * diff).sum(-1)
+
+
+def gather_vecs(chunk_words: torch.Tensor, ids: torch.Tensor,
+                layout: ChunkLayout) -> torch.Tensor:
+    """The f32 vectors of rows ids (any shape, values in [0, N)) read out of
+    the chunk table: ids.shape + (dim,). Copies only those rows, never an
+    (N, d) resident copy of the corpus."""
+    rows = chunk_words.index_select(0, ids.reshape(-1).long())
+    return parse_vec_words(rows, layout).reshape(ids.shape + (layout.dim,))
+
+
+def rerank_rows_ref(queries: torch.Tensor, chunk_words: torch.Tensor,
+                    ids: torch.Tensor, layout: ChunkLayout, *,
+                    metric: str) -> torch.Tensor:
+    """Exact distances of each query's candidates by id: queries (nq, d),
+    ids (nq, r) -> (nq, r). Ids clamp to [0, N-1] for the gather, and an
+    id < 0 gives +inf (the reference engine's clip, gather and where)."""
+    cand = gather_vecs(chunk_words, ids.clamp(0, chunk_words.shape[0] - 1),
+                       layout)
+    d = rerank_ref(queries, cand, metric=metric)
+    return torch.where(ids >= 0, d, torch.inf)

@@ -22,7 +22,6 @@ from repro_torch.core.device_index import DeviceIndex, beam_search_device
 from repro_torch.core.chunk_layout import ChunkLayout
 from repro_torch.device import DeviceLike, resolve_device, to_tensor
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import unpack_u8
 
 
 def make_device_search_fn(index: DeviceIndex, layout: ChunkLayout, *,
@@ -35,9 +34,9 @@ def make_device_search_fn(index: DeviceIndex, layout: ChunkLayout, *,
     fused hop.
 
     `rerank=r` (r > 0) adds the exact rerank tier: beam search returns its
-    top-max(r, k) pool, their full-precision vectors are gathered from the
-    chunk table, and `kernels.rerank` rescores every query's candidates in
-    one launch per batch before the final top-k.
+    top-max(r, k) pool, and `kernels.rerank_rows` rescores every query's
+    candidates in one launch per batch, reading their full-precision
+    vectors by id from the chunk rows, before the final top-k.
 
     The index must live on `device` (default: the card).
     """
@@ -45,16 +44,6 @@ def make_device_search_fn(index: DeviceIndex, layout: ChunkLayout, *,
         raise ValueError(f"index lives on {index.device}, not "
                          f"{resolve_device(device)}")
     dev = index.device
-    vec_words = layout.padded_vec_bytes // 4
-
-    def _gather_vecs(ids: torch.Tensor) -> torch.Tensor:
-        """Candidate vectors read out of the chunk rows on demand: only
-        nq*r rows per call, never an (N, d) resident copy of the corpus."""
-        rows = index.chunk_words.index_select(0, ids.reshape(-1).long())
-        vw = rows[:, :vec_words]
-        if layout.data_dtype == "uint8":
-            return unpack_u8(vw)[:, :layout.dim].float()
-        return vw[:, :layout.dim].contiguous().view(torch.float32)
 
     def search(queries: np.ndarray, k: int) -> np.ndarray:
         q = to_tensor(queries, dev, torch.float32)
@@ -69,10 +58,8 @@ def make_device_search_fn(index: DeviceIndex, layout: ChunkLayout, *,
             index, q, k=r, L=max(L, r), w=w, max_hops=max_hops,
             layout=layout, metric=metric, backend=backend,
             adc_dtype=adc_dtype)
-        nq = ids.shape[0]
-        cand = _gather_vecs(ids.clamp(0, index.n - 1)).reshape(nq, r, -1)
-        d = ops.rerank(q, cand, metric=metric, backend=backend)   # (nq, r)
-        d = torch.where(ids >= 0, d, torch.inf)
+        d = ops.rerank_rows(q, index.chunk_words, ids, layout,
+                            metric=metric, backend=backend)       # (nq, r)
         top = torch.argsort(d, dim=1, stable=True)[:, :k]
         return ids.gather(1, top).cpu().numpy()
 

@@ -22,6 +22,7 @@ from repro_torch.kernels.chunk_adc import hop_plan
 from repro_torch.kernels.pq_adc import pq_adc_q8
 from repro_torch.kernels.pq_lut import pq_lut as pq_lut_wrapper
 from repro_torch.kernels.rerank import rerank as rerank_wrapper
+from repro_torch.kernels.rerank import rerank_rows as rerank_rows_wrapper
 
 
 def _t(a):
@@ -50,9 +51,14 @@ def _hop_close(got, want):
 # ---------------------------------------------------------------------------
 
 
+# dsub = d/m covers every subspace width of the repo's configurations: 1
+# (SIFT1M), 2 (the short-slab layout), 4 (SIFT1B), 5 (SASRec's m=10 PQ of
+# 50-wide embeddings) and 8 (KILT-E5-22M), plus 12
 @pytest.mark.parametrize("nq,d,m,metric", [
     (1, 32, 4, "l2"), (3, 64, 16, "l2"), (5, 128, 32, "mips"),
     (2, 96, 8, "l2"), (4, 256, 64, "mips"), (3, 128, 128, "l2"),
+    (4, 160, 80, "l2"), (1, 50, 10, "mips"), (3, 40, 8, "l2"),
+    (2, 1024, 128, "mips"),
 ])
 def test_pq_lut_matches_jax(nq, d, m, metric):
     rng = np.random.default_rng(nq * 1000 + d + m)
@@ -61,9 +67,8 @@ def test_pq_lut_matches_jax(nq, d, m, metric):
     mine = ref.pq_lut_ref(_t(q), _t(cents), metric=metric).numpy()
     _allclose(mine, jref.pq_lut_ref(jnp.asarray(q), jnp.asarray(cents),
                                     metric=metric))
-    if m % 8 == 0:
-        _allclose(mine, jops.build_lut(q, cents, metric=metric,
-                                       backend="pallas_interpret"))
+    _allclose(mine, jops.build_lut(q, cents, metric=metric,
+                                   backend="pallas_interpret"))
     # the wrapper and ops on CPU tensors run the plain version
     np.testing.assert_array_equal(
         pq_lut_wrapper(_t(q), _t(cents), metric=metric).numpy(), mine)
@@ -320,6 +325,79 @@ def test_rerank_matches_jax(nq, c, d, metric):
     _allclose(ops.rerank(_t(q), _t(per_q), metric=metric).numpy(), mine)
 
 
+def _jax_gather_vecs(words, ids, jlay):
+    """Candidate vectors read from the chunk rows as the reference engine
+    reads them (repro/serving/engine.py make_device_search_fn
+    `_gather_vecs`): rows by id, bitcast to bytes, the vector's bytes."""
+    rows = jnp.asarray(words)[jnp.asarray(ids).reshape(-1)]
+    by = jax.lax.bitcast_convert_type(rows, jnp.uint8) \
+        .reshape(rows.shape[0], -1)
+    vb = by[:, :jlay.b_full]
+    if jlay.data_dtype == "uint8":
+        return vb.astype(jnp.float32)
+    return jax.lax.bitcast_convert_type(
+        vb.reshape(rows.shape[0], jlay.dim, 4), jnp.float32)
+
+
+# (data dtype, metric, R, pq_m, dim): both vector types, both metrics, a d
+# that is not a multiple of 4 (u8: a partly used last word), SIFT1M widths
+@pytest.mark.parametrize("dt,metric,R,m,dim", [
+    ("float32", "l2", 8, 8, 32), ("float32", "mips", 12, 6, 30),
+    ("uint8", "l2", 12, 8, 48), ("uint8", "mips", 16, 5, 50),
+    ("uint8", "l2", 6, 2, 18), ("float32", "l2", 56, 128, 128),
+])
+def test_rerank_rows_matches_jax(dt, metric, R, m, dim):
+    """The candidates read by id from the chunk rows and reranked: the
+    port's plain version against the reference engine's gather, clip and
+    where around the interpreted Pallas rerank (one call a query, as the
+    reference engine makes them). Ids past the table clamp to its last
+    row; ids < 0 give +inf."""
+    N, nq, r = 40, 3, 24
+    jlay, lay, words, _, _, _ = _hop_case(dt, R, m, dim, N=N)
+    rng = np.random.default_rng(dim + R)
+    qs = rng.normal(size=(nq, dim)).astype(np.float32)
+    if dt == "uint8":
+        qs = qs * 40 + 128
+    ids = rng.integers(-1, N + 3, (nq, r)).astype(np.int32)
+    ids[0, :4] = -1
+    ids[1, :2] = N - 1 + np.arange(1, 3)
+    cand = _jax_gather_vecs(words, np.clip(ids, 0, N - 1), jlay) \
+        .reshape(nq, r, dim)
+    want = np.stack([np.asarray(jops.rerank(
+        jnp.asarray(qs[i]), cand[i], metric=metric,
+        backend="pallas_interpret")) for i in range(nq)])
+    want = np.where(ids >= 0, want, np.inf)
+    targs = (_t(qs), _t(words), _t(ids))
+    mine = ref.rerank_rows_ref(*targs, lay, metric=metric)
+    np.testing.assert_array_equal(np.isinf(mine.numpy()), ids < 0)
+    fin = ids >= 0
+    _allclose(mine.numpy()[fin], want[fin])
+    # the wrapper and ops on CPU tensors run the plain version
+    assert torch.equal(rerank_rows_wrapper(*targs, lay, metric=metric), mine)
+    assert torch.equal(ops.rerank_rows(*targs, lay, metric=metric), mine)
+    assert torch.equal(ops.rerank_rows(*targs, lay, metric=metric,
+                                       backend="ref"), mine)
+    # the same as gathering the vectors and reranking them as a tensor
+    gathered = ref.gather_vecs(_t(words), _t(ids).clamp(0, N - 1), lay)
+    np.testing.assert_array_equal(gathered.numpy(), np.asarray(cand))
+    direct = ops.rerank(_t(qs), gathered, metric=metric)
+    assert torch.equal(torch.where(_t(ids) >= 0, direct, torch.inf), mine)
+
+
+def test_rerank_rows_refuses_other_devices():
+    """rerank_rows on a tensor that is neither on the CPU nor on CUDA
+    raises instead of taking the plain version."""
+    _, lay, words, _, qs, _ = _hop_case("float32", 8, 8, 32, N=10)
+    ids = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rerank_rows_wrapper(torch.zeros((2, 32), device="meta"), _t(words),
+                            ids, lay)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.rerank_rows(_t(qs), _t(words), ids.to("meta"), lay)
+    with pytest.raises(ValueError, match="backend"):
+        ops.rerank_rows(_t(qs), _t(words), ids, lay, backend="pallas")
+
+
 # ---------------------------------------------------------------------------
 # wrapper contract
 # ---------------------------------------------------------------------------
@@ -343,6 +421,7 @@ def test_launch_counts_untouched_on_cpu():
     lut = ops.build_lut(_t(qs), _t(cents))
     ops.fused_hop(_t(words), _t(fids), lut, _t(qs), layout=lay)
     ops.rerank(_t(qs), _t(qs))
+    ops.rerank_rows(_t(qs), _t(words), _t(fids), lay)
     codes = _t(np.zeros((5, 8), dtype=np.uint8))
     ops.adc(lut, codes)
     pq_adc_q8(lut, codes)
