@@ -24,8 +24,10 @@ non-zero):
   3. the main path: a 10k-vector SIFT1M-width index (Vamana graph, PQ
      trained on the card, chunk table packed on the card) served through
      `ServingEngine` + `make_device_search_fn(L=256, rerank=100)`, f32 and
-     int8; recall@10 against brute-force groundtruth, agreement with the plain
-     (`backend="ref"`) search, and every kernel's launch count; one
+     int8, the search loop running as CUDA graphs of K hops; recall@10
+     against brute-force groundtruth, agreement with the plain
+     (`backend="ref"`) search, and every kernel's launch count (a graph
+     replay counts each launch it holds); one
      served batch profiled (its device ops: one rerank_kernel and no
      chunk-row copy); then the `[hop]` lines: the fused hop's time with
      one LUT and with the LUT rotated out of L2, its registers, shared
@@ -33,22 +35,36 @@ non-zero):
      at batch 64 and 256, rerank of gathered
      candidates, and the serving rerank step: the gather route that
      served it before rerank_rows (index_select, slice, rerank, where)
-     against one rerank_rows);
+     against one rerank_rows); the `[search_graph]` line: the graph
+     search against the same steps launched eagerly with one read a hop
+     (ids, distances and hops equal; batches 64, 37 and 1), the host syncs
+     of a search (at most ceil(hops / K) + 1) and each graph's capture
+     time; the `[write_load]` line: the index written by the port's
+     `write_index`, reloaded by `load_device_index` (same table, same
+     answers), and built again by `build_index` on the card;
   4. DiskANN placement: the same 10k vectors, graph and codes re-packed
      with mode="diskann" and served the same way; recall@10, agreement with
      phase 3, fast-tier bytes of both placements at batch 64, the time of
-     each placement's hop alone and per hop of a batch-64 search;
+     each placement's hop alone and per hop of a batch-64 search (the
+     graph search equal to the eager one in both placements);
   5. deployment size: a 1M-node SIFT1M-width chunk table (7.94 GB) on the
      card over the random R-regular start graph, served in batches of 64
-     and 256; QPS, hops, time per hop, fused_hop bytes/s, peak memory,
-     and one profiled search each for f32 and int8: device busy time by
-     kernel, idle share, device ops per hop;
+     and 256; QPS, hops, the graph search's wall time against the eager
+     one-read-a-hop search's (equal answers), host syncs a search, time
+     per hop, fused_hop bytes/s, peak memory, and one profiled search each
+     for f32 and int8 at both batches: device busy time by kernel, idle
+     share, device ops per hop, and the device time of the same graph
+     replays back to back from CUDA events; the f32 batch-64 search's
+     wall time at K = 2, 4, 8 and 16 hops a replay (`[search_k]`);
   6. recommender retrieval: SASRec at full width (embed_dim 50, seq_len 50,
      2 blocks) against 1,000,000 candidates (retrieval_cand), PQ m=10
      trained and encoded on the card, 64 one-user requests through
-     `retrieval_topk_pq` (pq_lut + pq_adc kernels); latency p50/p99,
-     agreement with the plain path, overlap with exact top-100, launches,
-     and the path's own LUTs and ADC distances against their plain versions;
+     `make_retrieval_fn` (the request as one CUDA graph: pq_lut + pq_adc
+     kernels) and through the eager `retrieval_topk_pq`; latency p50/p99
+     of both, agreement with the plain path, overlap with exact top-100,
+     launches, a profiled request (wall against device busy, and the
+     replay's device time from CUDA events), and the path's own LUTs and
+     ADC distances against their plain versions;
   7. bulk ADC: 8 queries against 1,000,000 codes at m=16 through `ops.adc`
      and `pq_adc_q8`; the int8 error bound and top-10 overlap;
   8. the `[adc]` lines: for the retrieval, bulk and wide shapes and each
@@ -74,6 +90,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import faulthandler
 import json
 import os
 import subprocess
@@ -177,6 +194,25 @@ def device_ms(fns) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * len(fns))
+
+
+def host_syncs(fn):
+    """How many times fn made the host wait for the card, and fn's result:
+    torch.cuda's sync debug mode warns once at each synchronizing call (a
+    copy to the host, `.item()`, `.tolist()`)."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    n = sum("called a synchronizing CUDA operation" in str(w.message)
+            for w in caught)
+    return n, out
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -670,6 +706,129 @@ def serving_batch_profile(fn, queries):
             f"and {n_select} index_select ops")
 
 
+def same_search(got, want, what: str) -> int:
+    """Two beam_search_device results: ids, distances and hops equal, or
+    raises. Returns the hops."""
+    import torch
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and got[2] == want[2],
+            f"{what}: the graph search differs from the eager one (hops "
+            f"{got[2]} vs {want[2]})")
+    return got[2]
+
+
+def search_syncs(idx, lay, q, **kw):
+    """Host syncs of one search and the copy of its ids to the host (the
+    graphs already captured); raises past ceil(hops / K) + 1. Returns
+    (syncs, hops)."""
+    import math
+    from repro_torch.core.device_index import HOPS_PER_SYNC, \
+        beam_search_device
+    hops = []
+
+    def run():
+        ids, _, h = beam_search_device(idx, q, layout=lay, **kw)
+        hops.append(h)
+        return ids.cpu()
+
+    n, _ = host_syncs(run)
+    cap = math.ceil(hops[0] / HOPS_PER_SYNC) + 1
+    require(1 <= n <= cap, f"a search synced {n} times; hops {hops[0]}, "
+            f"at most {cap}")
+    return n, hops[0]
+
+
+def phase_search_graph(idx, lay, queries):
+    """The search loop on the card as CUDA graphs (K = HOPS_PER_SYNC hops a
+    replay) against the same steps launched eagerly with one read a hop
+    (K=1) on the 10k index: ids, distances and hops equal, f32 and int8,
+    at batches of 64, 37 (padded to 64) and 1; the host syncs of a search
+    (sync debug mode); the capture time of each graph the index holds."""
+    import torch
+    from repro_torch.configs import SIFT1M as cfg
+    from repro_torch.core.device_index import HOPS_PER_SYNC, \
+        beam_search_device
+    qt = torch.from_numpy(queries).cuda()
+    out = {}
+    for adc in ("f32", "int8"):
+        kw = dict(k=RERANK, L=SEARCH_L, w=cfg.beamwidth,
+                  max_hops=cfg.max_hops, metric="l2", adc_dtype=adc)
+        for nq in (64, 37, 1):
+            q = qt[:nq]
+            hops = same_search(
+                beam_search_device(idx, q, layout=lay, **kw),
+                beam_search_device(idx, q, layout=lay, hops_per_sync=1,
+                                   cuda_graph=False, **kw),
+                f"10k {adc} batch {nq}")
+            syncs, _ = search_syncs(idx, lay, q, **kw)
+            out[adc, nq] = (hops, syncs)
+    captures = sorted((k[0], k[6], k[8], round(g.capture_s, 4))
+                      for k, g in idx.graphs.items())
+    log("search_graph", K=HOPS_PER_SYNC, equal_to_eager_k1=True,
+        hops_syncs=json.dumps({f"{a}/{n}": v for (a, n), v in out.items()}),
+        graphs=len(idx.graphs),
+        capture_s_by_batch_adc_backend=json.dumps(captures))
+
+
+def phase_write_load(idx, lay, queries, arrays):
+    """The 10k index written by the port's `write_index` into a temporary
+    directory and reloaded with `load_device_index`: the same chunk table
+    and the same answers as the in-memory index. Then `build_index` on the
+    card from the same graph and initial centroid rows: PQ trained and
+    encoded again (the card's float sums may reorder, so its codes are
+    judged by top-10 agreement, not bits)."""
+    import tempfile
+    import torch
+    from repro_torch.configs import SIFT1M as cfg
+    from repro_torch.core.build import build_index
+    from repro_torch.core.device_index import beam_search_device, \
+        load_device_index
+    from repro_torch.core.index_io import load_meta, write_index
+    base, graph, cents, codes = arrays
+    init = np.random.default_rng(0).choice(len(base), cfg.pq_ks,
+                                           replace=False)
+    kw = dict(k=10, L=SEARCH_L, w=cfg.beamwidth, max_hops=cfg.max_hops,
+              metric="l2")
+    q = torch.from_numpy(queries).cuda()
+    want = beam_search_device(idx, q, layout=lay, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sift10k")
+        t0 = time.perf_counter()
+        write_index(path, vectors=base, graph=graph, centroids=cents,
+                    codes=codes, metric="l2", mode="aisaq")
+        t_write = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        t0 = time.perf_counter()
+        loaded, llay, metric = load_device_index(path, device="cuda")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        require(load_meta(path)["n"] == len(base) and metric == "l2"
+                and llay == lay, "the written index's meta or layout")
+        require(torch.equal(loaded.chunk_words, idx.chunk_words)
+                and torch.equal(loaded.ep_ids, idx.ep_ids),
+                "the reloaded chunk table differs from the in-memory one")
+        same_search(beam_search_device(loaded, q, layout=llay, **kw), want,
+                    "reloaded index")
+        del loaded
+        built = os.path.join(tmp, "sift10k_built")
+        t0 = time.perf_counter()
+        meta = build_index(built, base, cfg.scaled(n_vectors=len(base)),
+                           init_idx=init, graph=graph, device="cuda")
+        t_build = time.perf_counter() - t0
+        bidx, blay, _ = load_device_index(built, device="cuda")
+        got = beam_search_device(bidx, q, layout=blay, **kw)[0].cpu().numpy()
+    agree = float(np.mean([len(set(x) & set(y)) / 10.0 for x, y in
+                           zip(got, want[0].cpu().numpy())]))
+    log("write_load", n=len(base), write_s=f"{t_write:.3f}",
+        dir_bytes=nbytes, load_s=f"{t_load:.3f}", same_table=True,
+        same_answers=True, build_index_s=f"{t_build:.3f}",
+        build_pq_s=f"{meta['build_pq_s']:.3f}",
+        built_agreement_top10=agree)
+    require(agree >= 0.99, f"the index build_index wrote agrees {agree} "
+            f"with the in-memory one")
+
+
 def kernel_times(idx, lay, queries, nq: int = 64, c: int = 100):
     """Kernel, plain-version and library times at the main path's shapes:
     a serving batch of nq queries, w=4 frontier slots per query on the
@@ -851,11 +1010,34 @@ def serving_rerank_times(idx, lay, q, ids, table: str,
     return t
 
 
+def graph_device_ms(idx, nq, adc, hops) -> float:
+    """Device time of one search's graphs replayed back to back (the
+    prologue and ceil(hops / K) K-hop replays of the batch's cached
+    graphs, f32 or int8, kernel backend), from CUDA events: the search's
+    device work without the host's reads in between."""
+    import math
+    import torch
+    from repro_torch.core.device_index import HOPS_PER_SYNC, _pad_rows
+    g = next(g for k, g in idx.graphs.items()
+             if k[0] == _pad_rows(nq) and k[6] == adc and k[8] == "auto")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    g.prologue.replay()
+    for _ in range(math.ceil(hops / HOPS_PER_SYNC)):
+        g.hops.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
 def phase_deployment():
     """1M nodes at SIFT1M widths; recall is not judged (random graph)."""
     import torch
     from repro_torch.configs import SIFT1M as cfg
-    from repro_torch.core.device_index import beam_search_device, from_arrays
+    from repro_torch.core.device_index import HOPS_PER_SYNC, \
+        beam_search_device, from_arrays
     from repro_torch.core.pq import encode, train_codebooks
     from repro_torch.core.vamana import random_regular_graph
     from repro_torch.data.vectors import make_clustered, make_queries
@@ -887,7 +1069,7 @@ def phase_deployment():
         note="random R-regular graph: recall is not judged at this size")
     require(table == n * lay.device_stride, "chunk table size")
     qt = torch.from_numpy(queries).cuda()
-    search_ms_64 = {}
+    searches = {}
     for adc in ("f32", "int8"):
         for nq in (64, 256):
             fn = make_device_search_fn(idx, lay, metric="l2", L=SEARCH_L,
@@ -901,14 +1083,27 @@ def phase_deployment():
             t_serve = time.perf_counter() - t0
             require(ids.shape == (nq, 10) and (ids >= 0).all(),
                     "deployment search returned bad ids")
+            kw = dict(k=RERANK, L=SEARCH_L, w=cfg.beamwidth,
+                      max_hops=cfg.max_hops, layout=lay, metric="l2",
+                      adc_dtype=adc)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            _, _, hops = beam_search_device(
-                idx, qt[:nq], k=RERANK, L=SEARCH_L, w=cfg.beamwidth,
-                max_hops=cfg.max_hops, layout=lay, metric="l2",
-                adc_dtype=adc)
+            graphed = beam_search_device(idx, qt[:nq], **kw)
             torch.cuda.synchronize()
             t_search = time.perf_counter() - t0
+            hops = graphed[2]
+            t0 = time.perf_counter()
+            eager = beam_search_device(idx, qt[:nq], hops_per_sync=1,
+                                       cuda_graph=False, **kw)
+            torch.cuda.synchronize()
+            t_eager = time.perf_counter() - t0
+            same_search(graphed, eager, f"1M {adc} batch {nq}")
+            syncs, _ = search_syncs(idx, lay, qt[:nq], **{
+                k: v for k, v in kw.items() if k != "layout"})
+            events_ms = graph_device_ms(idx, nq, adc, hops)
+            searches[adc, nq] = dict(wall_ms=t_search * 1e3, hops=hops,
+                                     syncs=syncs, events_ms=events_ms,
+                                     eager_ms=t_eager * 1e3)
             lut = ops.build_lut(qt[:nq], idx.centroids)
             g = torch.Generator(device="cuda").manual_seed(1)
             fids = [torch.randint(0, n, (nq, cfg.beamwidth), generator=g,
@@ -922,34 +1117,56 @@ def phase_deployment():
                          + nq * (w + 2 * w * cfg.R) * 4 + nq * cfg.dim * 4)
             log("deploy", adc=adc, batch=nq, qps=f"{nq / t_serve:.1f}",
                 serve_ms=f"{t_serve * 1e3:.2f}", hops=hops,
-                search_ms_per_hop=f"{t_search * 1e3 / hops:.3f}",
+                search_ms=f"{t_search * 1e3:.3f}",
+                eager_k1_search_ms=f"{t_eager * 1e3:.3f}",
+                search_ms_per_hop=f"{t_search * 1e3 / hops:.4f}",
+                K=HOPS_PER_SYNC, host_syncs=syncs,
                 fused_hop_ms=f"{hop_ms:.4f}",
                 fused_hop_GBps=f"{hop_bytes / hop_ms / 1e6:.1f}",
                 hbm_share=f"{hop_bytes / hop_ms * 1e3 / HBM_BYTES_PER_S:.4f}")
-            if nq == 64:
-                search_ms_64[adc] = t_search * 1e3
     log("deploy", peak_device_bytes=torch.cuda.max_memory_allocated())
+    # what K costs: hops a replay against reads of the host, f32 batch 64
+    # (K=8 is the default the searches above ran)
+    kw = dict(k=RERANK, L=SEARCH_L, w=cfg.beamwidth, max_hops=cfg.max_hops,
+              layout=lay, metric="l2")
+    k_ms = {}
+    for K in (2, 4, 8, 16):
+        beam_search_device(idx, qt[:64], hops_per_sync=K, **kw)   # capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, hops = beam_search_device(idx, qt[:64], hops_per_sync=K, **kw)
+        torch.cuda.synchronize()
+        k_ms[K] = round((time.perf_counter() - t0) * 1e3, 3)
+    log("search_k", adc="f32", batch=64, hops=hops,
+        search_ms_by_K=json.dumps(k_ms))
     # the serving rerank step on the 1M table (rows mostly out of L2)
     g = torch.Generator(device="cuda").manual_seed(3)
     serving_rerank_times(idx, lay, qt[:64], [torch.randint(
         0, n, (64, RERANK), generator=g, device="cuda", dtype=torch.int32)
         for _ in range(20)], "1m", required=False)
-    # where a hop's time goes: device time by kernel over one profiled
-    # search (batch 64, f32 and int8), against the unprofiled wall time of
-    # the same search above (the profiler slows the host, not the device)
-    for adc, wall_ms in search_ms_64.items():
+    # where a search's time goes: device time by kernel over one profiled
+    # search (batches 64 and 256, f32 and int8), against the unprofiled
+    # wall time of the same search above (the profiler slows the host, not
+    # the device); beside it the device time of the same graph replays
+    # back to back, from CUDA events
+    for (adc, nq), srch in searches.items():
         rows, (_, _, hops) = profile_window(lambda: beam_search_device(
-            idx, qt[:64], k=RERANK, L=SEARCH_L, w=cfg.beamwidth,
+            idx, qt[:nq], k=RERANK, L=SEARCH_L, w=cfg.beamwidth,
             max_hops=cfg.max_hops, layout=lay, metric="l2", adc_dtype=adc),
             required=False)
+        wall_ms = srch["wall_ms"]
         busy_ms = sum(r[0] for r in rows)
         hop_ms = sum(t for t, k, _ in rows if "hop_kernel" in k)
-        log("profile", batch=64, adc=adc, hops=hops,
-            search_ms=f"{wall_ms:.2f}", device_busy_ms=f"{busy_ms:.3f}",
+        log("profile", batch=nq, adc=adc, hops=hops, K=HOPS_PER_SYNC,
+            host_syncs=srch["syncs"], search_ms=f"{wall_ms:.3f}",
+            eager_k1_search_ms=f"{srch['eager_ms']:.3f}",
+            device_busy_ms=f"{busy_ms:.3f}",
             device_idle_share=f"{1 - busy_ms / wall_ms:.4f}",
-            host_ms_per_hop=f"{(wall_ms - busy_ms) / hops:.3f}",
+            events_device_ms=f"{srch['events_ms']:.3f}",
+            events_idle_share=f"{1 - srch['events_ms'] / wall_ms:.4f}",
+            host_ms_per_hop=f"{(wall_ms - busy_ms) / hops:.4f}",
             device_ops_per_hop=f"{sum(r[2] for r in rows) / hops:.1f}",
-            fused_hop_device_share=f"{hop_ms / busy_ms:.4f}",
+            fused_hop_device_share=f"{hop_ms / max(busy_ms, 1e-9):.4f}",
             profiled_launches=profiled_last(),
             top=json.dumps([[k[:40], round(t, 4), c]
                             for t, k, c in rows[:10]]))
@@ -1022,6 +1239,10 @@ def phase_diskann(arrays, aisaq_idx, aisaq_lay, queries, gt, aisaq_ids):
         _, _, hops = beam_search_device(ix, q, **kw)
         torch.cuda.synchronize()
         per_hop[name] = (time.perf_counter() - t0) * 1e3 / hops
+        same_search(beam_search_device(ix, q, **kw),
+                    beam_search_device(ix, q, hops_per_sync=1,
+                                       cuda_graph=False, **kw),
+                    f"10k {name} placement, batch 64")
     log("diskann", batch=64, w=cfg.beamwidth,
         hop_device_ms_aisaq=f"{hop_ms['aisaq']:.5f}",
         hop_device_ms_diskann=f"{hop_ms['diskann']:.5f}",
@@ -1067,6 +1288,26 @@ def adc_times(luts, codes, n_copies: int):
             plain_ms=device_ms([lambda a=a: ref.pq_adc_q8_ref(*a)
                                 for a in pick]),
             library_ms=None)}
+
+
+# every CUDA graph the port captured in this process (keep_port_graphs)
+KEPT_GRAPHS = []
+
+
+def keep_port_graphs() -> None:
+    """Keep every CUDA graph the port captures alive until the process
+    ends. With CUPTI kept up (main), a graph replayed in a profiler window
+    crashed the process (SIGSEGV in cudaGraphLaunch) once an earlier
+    profiled graph had been destroyed and other graphs captured since;
+    without the profiler windows, or with the port's graphs kept, the same
+    sequence ran clean (probes on an H100, PERF.md §6)."""
+    from repro_torch import cudagraph
+    capture = cudagraph.Graph.__init__
+
+    def capture_and_keep(self, *args, **kwargs):
+        capture(self, *args, **kwargs)
+        KEPT_GRAPHS.append(self.graph)
+    cudagraph.Graph.__init__ = capture_and_keep
 
 
 # (port kernels seen in a profile, launches the wrappers counted, windows
@@ -1198,11 +1439,28 @@ def phase_adc_report(retrieval_times, bulk_times, ops):
         del copies
 
 
+def replays_device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of fn (a graph replay) from CUDA events
+    around reps calls back to back."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def phase_recsys(n_requests: int = 64, k: int = 100, rerank_mult: int = 4):
     """SASRec at full width against the 1M-item catalogue (retrieval_cand):
     random parameters from a seeded generator on the card, PQ (m=10, 6
     Lloyd iterations on every candidate) trained and encoded on the card,
-    then n_requests one-user requests through retrieval_topk_pq."""
+    then n_requests one-user requests through `make_retrieval_fn` (one
+    CUDA graph replay each) and again through the eager
+    `retrieval_topk_pq`, in the same call."""
     import torch
     from repro_torch.configs import RETRIEVAL_CAND as shape
     from repro_torch.configs import SASREC as cfg
@@ -1229,24 +1487,39 @@ def phase_recsys(n_requests: int = 64, k: int = 100, rerank_mult: int = 4):
         0, cfg.vocab_sizes[0], (n_requests, shape.batch, cfg.seq_len))
     batches = [{"seq": s, "cand_ids": cand_ids} for s in seqs]
 
+    graphed = recsys.make_retrieval_fn(p, cfg, codes, cents, k=k,
+                                       rerank_mult=rerank_mult)
+
     def serve(b, backend="auto"):
+        if backend == "graph":
+            return graphed(b)
         return recsys.retrieval_topk_pq(p, b, cfg, codes, cents, k=k,
                                         rerank_mult=rerank_mult,
                                         backend=backend)
 
-    serve(batches[0])                                      # warm
+    def requests(backend):
+        """Latencies (s), ids and scores of the n_requests requests."""
+        lat, ids, vals = [], [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            i, v = serve(b, backend)
+            i, v = i.cpu().numpy(), v.cpu().numpy()
+            lat.append(time.perf_counter() - t0)
+            ids.append(i[0])
+            vals.append(v[0])
+        return np.array(lat), np.stack(ids), np.stack(vals)
+
+    t0 = time.perf_counter()
+    serve(batches[0], "graph")                     # warm-up and capture
+    t_capture = time.perf_counter() - t0
+    serve(batches[0])                              # the eager path, warm
     torch.cuda.synchronize()
     _build.reset_launch_counts()
-    lat, ids, vals = [], [], []
-    for b in batches:
-        t0 = time.perf_counter()
-        i, v = serve(b)
-        i, v = i.cpu().numpy(), v.cpu().numpy()
-        lat.append(time.perf_counter() - t0)
-        ids.append(i[0])
-        vals.append(v[0])
+    lat, ids, vals = requests("graph")
     launches = dict(_build.launch_counts)
-    ids, vals = np.stack(ids), np.stack(vals)
+    eager_lat, eager_ids, _ = requests("auto")
+    require(np.array_equal(eager_ids, ids),
+            "the graph's answers differ from the eager retrieval_topk_pq's")
     require(ids.shape == (n_requests, k) and np.isfinite(vals).all()
             and (ids >= 0).all() and (ids < n).all()
             and (np.diff(vals, axis=1) <= 0).all(),
@@ -1288,18 +1561,25 @@ def phase_recsys(n_requests: int = 64, k: int = 100, rerank_mult: int = 4):
                          for d in d_pq])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    serve(batches[0])[0].cpu()
+    serve(batches[0], "graph")[0].cpu()
     one_ms = (time.perf_counter() - t0) * 1e3
-    rows, _ = profile_window(lambda: serve(batches[0])[0].cpu(),
+    syncs, _ = host_syncs(lambda: serve(batches[0], "graph")[0].cpu())
+    rows, _ = profile_window(lambda: serve(batches[0], "graph")[0].cpu(),
                              required=False)
     busy_ms = sum(r[0] for r in rows)
-    lat_ms = np.array(lat) * 1e3
+    on_card = {"seq": torch.from_numpy(batches[0]["seq"]).cuda()}
+    replay_ms = replays_device_ms(lambda: serve(on_card, "graph"))
+    lat_ms = lat * 1e3
+    eager_ms = eager_lat * 1e3
     log("recsys", model=cfg.name, shape=shape.name, candidates=n,
         embed_dim=cfg.embed_dim, seq_len=cfg.seq_len, blocks=cfg.n_blocks,
         pq_m=m, setup_s=f"{t_setup:.2f}", requests=n_requests,
-        p50_ms=f"{np.percentile(lat_ms, 50):.3f}",
-        p99_ms=f"{np.percentile(lat_ms, 99):.3f}",
-        mean_ms=f"{lat_ms.mean():.3f}",
+        p50_ms=f"{np.percentile(lat_ms, 50):.4f}",
+        p99_ms=f"{np.percentile(lat_ms, 99):.4f}",
+        mean_ms=f"{lat_ms.mean():.4f}",
+        eager_p50_ms=f"{np.percentile(eager_ms, 50):.4f}",
+        eager_p99_ms=f"{np.percentile(eager_ms, 99):.4f}",
+        capture_s=f"{t_capture:.3f}",
         agreement_with_plain=agree, overlap_with_exact_top100=overlap,
         pq_lut_err=err_lut, pq_adc_err=err_adc,
         pq_lut_ms=f"{lut_ms['auto']:.5f}",
@@ -1308,9 +1588,13 @@ def phase_recsys(n_requests: int = 64, k: int = 100, rerank_mult: int = 4):
         pq_lut_bound_ms=f"{lut_bound:.6f}",
         sort_1m_ms=f"{sort_ms:.4f}", topk400_1m_ms=f"{topk_ms:.4f}",
         launches=json.dumps(launches, separators=(",", ":")))
-    log("recsys_profile", request_ms=f"{one_ms:.3f}",
+    log("recsys_profile", request_ms=f"{one_ms:.4f}",
         device_busy_ms=f"{busy_ms:.4f}",
         device_idle_share=f"{1 - busy_ms / one_ms:.4f}",
+        events_replay_ms=f"{replay_ms:.4f}",
+        events_idle_share=f"{1 - replay_ms / one_ms:.4f}",
+        idle_share_at_p50=f"{1 - busy_ms / np.percentile(lat_ms, 50):.4f}",
+        host_syncs=syncs,
         device_ops=sum(r[2] for r in rows),
         profiled_launches=profiled_last(),
         top=json.dumps([[key[:40], round(t, 4), c]
@@ -1393,6 +1677,7 @@ def phase_bulk_adc(nq: int = 8, n: int = 1_000_000, m: int = 16):
 
 
 def main() -> int:
+    faulthandler.enable()          # a crash in native code prints its stack
     # PyTorch tears CUPTI down after each profiler window and sets it up
     # again lazily; the next window then lost its first launch. Kept up,
     # the windows show their launches (checked below).
@@ -1404,6 +1689,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    keep_port_graphs()
     phase_env()
     errs = phase_parity()
     idx, lay, queries, gt, arrays = build_index_10k()
@@ -1412,6 +1698,8 @@ def main() -> int:
     adc_ops = adc_device_ops()
     launches, served = phase_main_path(idx, lay, queries, gt)
     times = kernel_times(idx, lay, queries)
+    phase_search_graph(idx, lay, queries)
+    phase_write_load(idx, lay, queries, arrays)
     phase_diskann(arrays, idx, lay, queries, gt, served)
     del idx, arrays
     torch.cuda.empty_cache()
@@ -1423,6 +1711,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_adc_report(adc, bulk, adc_ops)
     log("profiler", windows=len(PROFILED_LAUNCHES),
+        port_graphs_kept=len(KEPT_GRAPHS),
         complete=sum(s == n for s, n, _, _ in PROFILED_LAUNCHES),
         first_try=sum(t == 1 for _, _, t, _ in PROFILED_LAUNCHES),
         windows_seen_counted_tries_required=json.dumps(PROFILED_LAUNCHES))

@@ -1,15 +1,19 @@
 """Product Quantization (Jegou et al., TPAMI'11) in PyTorch.
 
-Port of `repro.core.pq`: per-subspace Lloyd k-means, encoding, exact
-distances and brute-force groundtruth, plus `recall_at`. The random
-initial centroid draw of the JAX version cannot be reproduced in torch,
-so `train_codebooks` takes the initial indices from the caller.
+Port of `repro.core.pq`: per-subspace Lloyd k-means, encoding and
+decoding, the per-query LUT and ADC (plain torch, as the reference's are
+plain jnp; the kernels are in `repro_torch.kernels`), exact distances and
+brute-force groundtruth, plus `recall_at`. The random initial centroid
+draw of the JAX version cannot be reproduced in torch, so
+`train_codebooks` takes the initial indices from the caller.
 
 Distance conventions (smaller is better everywhere):
   l2   -> squared euclidean, decomposed exactly over subspaces
   mips -> negative inner product, decomposed exactly over subspaces
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,6 +41,31 @@ def _assign(subs: torch.Tensor, cent: torch.Tensor) -> torch.Tensor:
     step = max(1, _CHUNK_ELEMS // (m * ks))
     return torch.cat([_pairwise_sqdist(subs[:, s:s + step], cent).argmin(-1)
                       for s in range(0, n, step)], dim=1)
+
+
+class PQCodebooks(NamedTuple):
+    """(m, ks, dsub) float32 centroids. `m` subquantizers, `ks` centroids."""
+
+    centroids: torch.Tensor
+
+    @property
+    def m(self) -> int:
+        return self.centroids.shape[0]
+
+    @property
+    def ks(self) -> int:
+        return self.centroids.shape[1]
+
+    @property
+    def dsub(self) -> int:
+        return self.centroids.shape[2]
+
+    @property
+    def dim(self) -> int:
+        return self.m * self.dsub
+
+    def nbytes(self) -> int:
+        return self.centroids.numel() * 4
 
 
 def split_subspaces(x: torch.Tensor, m: int) -> torch.Tensor:
@@ -88,6 +117,62 @@ def encode(centroids: torch.Tensor, data, *, device: DeviceLike = None
     x = to_tensor(data, dev, torch.float32)
     subs = split_subspaces(x, cent.shape[0])
     return _assign(subs, cent).T.contiguous().to(torch.uint8)
+
+
+def decode(codebooks: PQCodebooks, codes: torch.Tensor) -> torch.Tensor:
+    """(n, m) uint8 -> (n, d) float32 reconstruction."""
+    cent = codebooks.centroids
+    n, m = codes.shape
+    rec = cent[torch.arange(m, device=cent.device), codes.long()]
+    return rec.reshape(n, m * codebooks.dsub)             # (n, m, dsub)
+
+
+def build_lut(codebooks: PQCodebooks, queries: torch.Tensor, *,
+              metric: str = "l2") -> torch.Tensor:
+    """(q, d) -> (q, m, ks) float32 LUT.
+
+    l2:   lut[q, j, c] = ||q_j - cent[j, c]||^2
+    mips: lut[q, j, c] = -<q_j, cent[j, c]>
+    """
+    full_fp32()
+    qs = split_subspaces(queries.float(), codebooks.m)     # (m, q, dsub)
+    if metric == "l2":
+        lut = _pairwise_sqdist(qs, codebooks.centroids)    # (m, q, ks)
+    elif metric == "mips":
+        lut = -torch.einsum("mqd,mkd->mqk", qs, codebooks.centroids)
+    else:
+        raise ValueError(f"unknown metric {metric!r}")
+    return lut.permute(1, 0, 2).contiguous()               # (q, m, ks)
+
+
+def adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Asymmetric distances. lut: (q, m, ks) or (m, ks); codes: (..., m).
+
+    Returns (q, ...) or (...,) float32 distances = sum_j lut[j, codes[..., j]].
+    """
+    single = lut.ndim == 2
+    if single:
+        lut = lut[None]
+    q, m, ks = lut.shape
+    flat = lut.reshape(q, m * ks)
+    idx = codes.long() + torch.arange(m, device=lut.device) * ks  # (..., m)
+    out = flat[:, idx.reshape(-1, m)].sum(-1).reshape(
+        (q,) + tuple(codes.shape[:-1]))
+    return out[0] if single else out
+
+
+def adc_onehot(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """ADC as one-hot(codes) contracted with the LUT, the TPU-native form of
+    the reference (a product instead of gathers). Same contract as
+    :func:`adc`."""
+    full_fp32()
+    single = lut.ndim == 2
+    if single:
+        lut = lut[None]
+    ks = lut.shape[2]
+    oh = torch.nn.functional.one_hot(codes.long(), ks).to(lut.dtype)
+    out = torch.einsum("...mk,qmk->q...", oh, lut)
+    return out[0] if single else out
 
 
 def exact_distances(queries: torch.Tensor, base: torch.Tensor, *,

@@ -7,7 +7,10 @@ here runs at import time, so the module imports on machines without
 `nvcc` or a card.
 
 Every wrapper counts its launches in `launch_counts` (kernel name -> int),
-adding one where it launches the kernel and nowhere else.
+adding one where it launches the kernel and nowhere else. Inside a CUDA
+graph capture (`recorded_launches`) nothing is launched: the wrappers'
+launches are recorded instead, and each replay of the graph adds them to
+the counts (`count_replay`).
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -53,6 +58,7 @@ launch_counts = {name: 0 for name in KERNELS}
 build_seconds = None          # wall time of the nvcc run, None if cached
 _lock = threading.Lock()
 _lib = None
+_capture = threading.local()      # .launches: the capture's Counter, or None
 
 
 def reset_launch_counts() -> None:
@@ -62,8 +68,35 @@ def reset_launch_counts() -> None:
 
 
 def count_launch(name: str) -> None:
+    recording = getattr(_capture, "launches", None)
+    if recording is not None:
+        recording[name] += 1
+        return
     with _lock:
         launch_counts[name] += 1
+
+
+@contextmanager
+def recorded_launches():
+    """Within the block (a CUDA graph capture on this thread) the wrappers'
+    launches go into the Counter it yields, not into `launch_counts`: a
+    capture launches nothing, and each replay counts them (`count_replay`).
+    """
+    if getattr(_capture, "launches", None) is not None:
+        raise RuntimeError("launches are already being recorded on this "
+                           "thread")
+    _capture.launches = Counter()
+    try:
+        yield _capture.launches
+    finally:
+        _capture.launches = None
+
+
+def count_replay(launches: dict) -> None:
+    """One replay of a graph whose capture recorded `launches`."""
+    with _lock:
+        for name, n in launches.items():
+            launch_counts[name] += n
 
 
 def _nvcc() -> str:

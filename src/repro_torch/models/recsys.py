@@ -15,6 +15,7 @@ other towers and the CTR forward are queued in ROADMAP §1.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, Tuple
 
 import numpy as np
@@ -22,6 +23,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs import RecsysConfig
+from repro_torch.cudagraph import Graph, warm_up
 from repro_torch.device import DeviceLike, full_fp32, resolve_device, \
     to_tensor
 from repro_torch.kernels import ops
@@ -236,3 +238,41 @@ def retrieval_topk_pq(p: SASRec, batch: Dict, cfg: RecsysConfig,
     exact = _project(p, pre) @ u[0]
     vals, idx = _top(exact, k, largest=True)
     return pre[idx][None], vals[None]
+
+
+def make_retrieval_fn(p: SASRec, cfg: RecsysConfig, pq_codes: torch.Tensor,
+                      centroids: torch.Tensor, k: int = 100,
+                      rerank_mult: int = 4):
+    """`retrieval_topk_pq` as a callable `batch -> (ids (1, k), scores (1,
+    k))` at fixed shapes. On the card the whole request (user tower,
+    `pq_lut`, `pq_adc`, the stable sort, the projection, the product and
+    the second stable sort) is captured in one CUDA graph at the first call
+    for each shape of `batch["seq"]`, after one eager warm-up; each call
+    copies the request's item ids into the graph's fixed input and replays
+    it. The outputs are the graph's fixed tensors, which the next call
+    overwrites: copy them out (e.g. `.cpu()`) before calling again. A lock
+    keeps callers from replaying at once. On the CPU it calls
+    `retrieval_topk_pq` eagerly.
+    """
+    if p.device.type != "cuda":
+        return lambda batch: retrieval_topk_pq(
+            p, batch, cfg, pq_codes, centroids, k, rerank_mult)
+    graphs: Dict[tuple, Tuple[torch.Tensor, Graph]] = {}
+    lock = threading.Lock()
+
+    def request(seq: torch.Tensor):
+        return retrieval_topk_pq(p, {"seq": seq}, cfg, pq_codes, centroids,
+                                 k, rerank_mult)
+
+    def serve(batch: Dict):
+        seq = _batch(p, batch, "seq")
+        with lock, torch.no_grad():
+            if seq.shape not in graphs:
+                static = seq.clone()
+                warm_up(lambda: request(static))
+                graphs[seq.shape] = static, Graph(lambda: request(static))
+            static, graph = graphs[seq.shape]
+            static.copy_(seq)
+            graph.replay()
+            return graph.out
+    return serve

@@ -202,6 +202,28 @@ def test_retrieval_topk_pq_matches_jax(model, pq_model, seed):
                                    rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("seed", [2, 5])
+def test_make_retrieval_fn_on_the_cpu_matches_jax(model, pq_model, seed):
+    """On the CPU the request runs eagerly: the same answer as
+    retrieval_topk_pq and the reference, request after request."""
+    jp, p = model
+    cents, codes = pq_model
+    fn = recsys.make_retrieval_fn(p, CFG, torch.from_numpy(codes.copy()),
+                                  torch.from_numpy(cents.copy()), k=100,
+                                  rerank_mult=4)
+    for s in (seed, seed + 10):
+        seq = _seq(s, b=1)
+        ids, vals = fn(_batch(seq))
+        want = recsys.retrieval_topk_pq(
+            p, _batch(seq), CFG, torch.from_numpy(codes.copy()),
+            torch.from_numpy(cents.copy()), k=100, rerank_mult=4)
+        assert torch.equal(ids, want[0]) and torch.equal(vals, want[1])
+        jids, _ = jrec.retrieval_topk_pq(jp, _jbatch(seq), JCFG,
+                                         jnp.asarray(codes),
+                                         jnp.asarray(cents), k=100)
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+
+
 def test_other_towers_are_not_ported():
     dlrm = configs.RecsysConfig(name="dlrm", kind="dlrm", embed_dim=16,
                                 vocab_sizes=(10,))
