@@ -62,16 +62,41 @@ non-zero):
      `make_retrieval_fn` (the request as one CUDA graph: pq_lut + pq_adc
      kernels) and through the eager `retrieval_topk_pq`; latency p50/p99
      of both, agreement with the plain path, overlap with exact top-100,
-     launches, a profiled request (wall against device busy, and the
-     replay's device time from CUDA events), and the path's own LUTs and
-     ADC distances against their plain versions;
+     launches, one request's wall against the device busy time of the
+     same request launched eagerly under the profiler and the replay's
+     device time from CUDA events, and the path's own LUTs and ADC
+     distances against their plain versions;
   7. bulk ADC: 8 queries against 1,000,000 codes at m=16 through `ops.adc`
      and `pq_adc_q8`; the int8 error bound and top-10 overlap;
   8. the `[adc]` lines: for the retrieval, bulk and wide shapes and each
      LUT dtype, `adc_plan`'s plan, registers, spills, resident CTAs, the
      time at the shape and at one tile a CTA (mostly the LUT staging),
-     and one device op a call.
-Each path's launch counts are reset just before it and read just after.
+     and one device op a call;
+  9. `[storage]`: the 10k index of phase 3 as written to disk (and its
+     DiskANN placement) searched from its files by
+     `HostIndex(device="cuda")` — chunks read through the block cache,
+     each hop's arithmetic on the card (`fused_hop` over the staged rows,
+     the int8 ADC as a gather, the DiskANN frontier through `rerank`):
+     256 queries in batches of 64 at L=256, rerank 100, f32 and int8,
+     prefetch 0 and 4; agreement with device="cpu", recall, the int8 gap,
+     equal ids with and without prefetch, QPS, hops / reads / bytes a
+     query, load time, resident bytes, the peak device bytes of one
+     batch, busy and idle share from the profiler, and the launches of
+     the path;
+ 10. `[storage1m]`: phase 5's 1M index written through the port's
+     `write_index` (8.19 GB of chunks; N cut in steps of 100k if the disk
+     lacks room) and searched at batches of 64 and 256, f32 and int8,
+     once with the file's pages dropped and once warm; the same figures
+     (recall not judged), and the peak device bytes of one batch-64
+     search within 1 MB of the 10k one and at most 32 MB;
+ 11. `[switch]`: `IndexManager` over two 10k indices sharing centroids,
+     then over the 10k and 1M indices: median switch time, load times;
+ 12. `[serve_launch]`: `repro_torch.launch.serve.main` on the card over
+     its demo index: QPS and latency as it prints them.
+Each path's launch counts are reset just before it and read just after;
+the kernels line gives the main path's as `launches` and the storage
+path's as `launches_storage`. The run's index directories live in one
+temporary directory, removed at exit.
 Each profiled window whose counts are checked (the device ops of a
 kernel call, the served batch) must show every launch the wrappers
 counted in it (`profile_window`); the other windows (the profiled
@@ -93,8 +118,10 @@ from __future__ import annotations
 import faulthandler
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -770,14 +797,14 @@ def phase_search_graph(idx, lay, queries):
         capture_s_by_batch_adc_backend=json.dumps(captures))
 
 
-def phase_write_load(idx, lay, queries, arrays):
-    """The 10k index written by the port's `write_index` into a temporary
-    directory and reloaded with `load_device_index`: the same chunk table
+def phase_write_load(idx, lay, queries, arrays, root):
+    """The 10k index written by the port's `write_index` into `root` (the
+    run's temporary directory; the storage phases read it there) and
+    reloaded with `load_device_index`: the same chunk table
     and the same answers as the in-memory index. Then `build_index` on the
     card from the same graph and initial centroid rows: PQ trained and
     encoded again (the card's float sums may reorder, so its codes are
     judged by top-10 agreement, not bits)."""
-    import tempfile
     import torch
     from repro_torch.configs import SIFT1M as cfg
     from repro_torch.core.build import build_index
@@ -791,33 +818,32 @@ def phase_write_load(idx, lay, queries, arrays):
               metric="l2")
     q = torch.from_numpy(queries).cuda()
     want = beam_search_device(idx, q, layout=lay, **kw)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "sift10k")
-        t0 = time.perf_counter()
-        write_index(path, vectors=base, graph=graph, centroids=cents,
-                    codes=codes, metric="l2", mode="aisaq")
-        t_write = time.perf_counter() - t0
-        nbytes = sum(os.path.getsize(os.path.join(path, f))
-                     for f in os.listdir(path))
-        t0 = time.perf_counter()
-        loaded, llay, metric = load_device_index(path, device="cuda")
-        torch.cuda.synchronize()
-        t_load = time.perf_counter() - t0
-        require(load_meta(path)["n"] == len(base) and metric == "l2"
-                and llay == lay, "the written index's meta or layout")
-        require(torch.equal(loaded.chunk_words, idx.chunk_words)
-                and torch.equal(loaded.ep_ids, idx.ep_ids),
-                "the reloaded chunk table differs from the in-memory one")
-        same_search(beam_search_device(loaded, q, layout=llay, **kw), want,
-                    "reloaded index")
-        del loaded
-        built = os.path.join(tmp, "sift10k_built")
-        t0 = time.perf_counter()
-        meta = build_index(built, base, cfg.scaled(n_vectors=len(base)),
-                           init_idx=init, graph=graph, device="cuda")
-        t_build = time.perf_counter() - t0
-        bidx, blay, _ = load_device_index(built, device="cuda")
-        got = beam_search_device(bidx, q, layout=blay, **kw)[0].cpu().numpy()
+    path = os.path.join(root, "sift10k")
+    t0 = time.perf_counter()
+    write_index(path, vectors=base, graph=graph, centroids=cents,
+                codes=codes, metric="l2", mode="aisaq")
+    t_write = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    t0 = time.perf_counter()
+    loaded, llay, metric = load_device_index(path, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    require(load_meta(path)["n"] == len(base) and metric == "l2"
+            and llay == lay, "the written index's meta or layout")
+    require(torch.equal(loaded.chunk_words, idx.chunk_words)
+            and torch.equal(loaded.ep_ids, idx.ep_ids),
+            "the reloaded chunk table differs from the in-memory one")
+    same_search(beam_search_device(loaded, q, layout=llay, **kw), want,
+                "reloaded index")
+    del loaded
+    built = os.path.join(root, "sift10k_built")
+    t0 = time.perf_counter()
+    meta = build_index(built, base, cfg.scaled(n_vectors=len(base)),
+                       init_idx=init, graph=graph, device="cuda")
+    t_build = time.perf_counter() - t0
+    bidx, blay, _ = load_device_index(built, device="cuda")
+    got = beam_search_device(bidx, q, layout=blay, **kw)[0].cpu().numpy()
     agree = float(np.mean([len(set(x) & set(y)) / 10.0 for x, y in
                            zip(got, want[0].cpu().numpy())]))
     log("write_load", n=len(base), write_s=f"{t_write:.3f}",
@@ -1033,7 +1059,9 @@ def graph_device_ms(idx, nq, adc, hops) -> float:
 
 
 def phase_deployment():
-    """1M nodes at SIFT1M widths; recall is not judged (random graph)."""
+    """1M nodes at SIFT1M widths; recall is not judged (random graph).
+    Returns the index's host arrays (vectors, graph, centroids, codes) and
+    its queries, for the storage phases."""
     import torch
     from repro_torch.configs import SIFT1M as cfg
     from repro_torch.core.device_index import HOPS_PER_SYNC, \
@@ -1051,7 +1079,6 @@ def phase_deployment():
     t_data = time.perf_counter() - t0
     t0 = time.perf_counter()
     vecs = torch.from_numpy(base).cuda()
-    del base
     graph = random_regular_graph(n, cfg.R, seed=0, device="cuda")
     rng = np.random.default_rng(0)
     sample = torch.from_numpy(rng.choice(n, 100_000, replace=False)).cuda()
@@ -1061,6 +1088,8 @@ def phase_deployment():
                             ks=cfg.pq_ks, iters=12, device="cuda")
     codes = encode(cents, vecs, device="cuda")
     idx, lay = from_arrays(vecs, graph, cents, codes, device="cuda")
+    host_arrays = (base, graph.cpu().numpy(), cents.cpu().numpy(),
+                   codes.cpu().numpy())
     del vecs, graph, codes
     torch.cuda.synchronize()
     table = idx.chunk_words.numel() * 4
@@ -1170,6 +1199,7 @@ def phase_deployment():
             profiled_launches=profiled_last(),
             top=json.dumps([[k[:40], round(t, 4), c]
                             for t, k, c in rows[:10]]))
+    return host_arrays, queries
 
 
 def phase_diskann(arrays, aisaq_idx, aisaq_lay, queries, gt, aisaq_ids):
@@ -1248,6 +1278,298 @@ def phase_diskann(arrays, aisaq_idx, aisaq_lay, queries, gt, aisaq_ids):
         hop_device_ms_diskann=f"{hop_ms['diskann']:.5f}",
         search_ms_per_hop_aisaq=f"{per_hop['aisaq']:.4f}",
         search_ms_per_hop_diskann=f"{per_hop['diskann']:.4f}")
+
+
+# ---------------------------------------------------------------------------
+# the storage-backed search (HostIndex: chunks read from the file, the
+# hop's arithmetic on the card)
+# ---------------------------------------------------------------------------
+
+STORAGE_BATCH = 64
+# the kernels of the storage search path
+STORAGE_KERNELS = ("fused_hop_f32", "pq_lut", "rerank")
+
+
+def storage_search(idx, queries, nq: int = STORAGE_BATCH, **kw):
+    """The queries through `HostIndex.search_batch` in batches of nq, k=10
+    at the served L and rerank depth. Returns (ids, stats, wall s)."""
+    import torch
+    from repro_torch.configs import SIFT1M as cfg
+    ids, stats = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, len(queries), nq):
+        i, st = idx.search_batch(queries[s:s + nq], 10, L=SEARCH_L,
+                                 w=cfg.beamwidth, rerank=RERANK, **kw)
+        ids.append(i)
+        stats += st
+    torch.cuda.synchronize()
+    return np.concatenate(ids), stats, time.perf_counter() - t0
+
+
+def per_query(stats) -> dict:
+    """Mean hops, ios (chunk reads) and bytes read from storage a query,
+    and the run's seconds blocked in block-cache fetches and in the rest
+    of the hop loop (staging, the device's step, bookkeeping), summed over
+    its batches (`SearchStats` puts them on each batch's lead query)."""
+    n = len(stats)
+    return dict(hops=sum(s.hops for s in stats) / n,
+                ios=sum(s.ios for s in stats) / n,
+                bytes_read=sum(s.bytes_read for s in stats) / n,
+                blocked_s=sum(s.blocked_wait_s for s in stats),
+                compute_s=sum(s.compute_s for s in stats))
+
+
+def agreement(a, b) -> float:
+    return float(np.mean([len(set(x) & set(y)) / float(len(x))
+                          for x, y in zip(a, b)]))
+
+
+def peak_search_bytes(fn) -> int:
+    """Device bytes one call of fn allocates at its peak, above what was
+    allocated before it."""
+    import torch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before
+
+
+def storage_profile(fn) -> dict:
+    """One call of fn unprofiled (wall) and under torch.profiler (device
+    busy time, the kernels' launches it saw): busy and idle share."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, _ = profile_window(fn, required=False)
+    busy_ms = sum(r[0] for r in rows)
+    return dict(wall_ms=f"{wall_ms:.3f}", device_busy_ms=f"{busy_ms:.3f}",
+                device_busy_share=f"{busy_ms / wall_ms:.4f}",
+                device_idle_share=f"{1 - busy_ms / wall_ms:.4f}",
+                device_ops=sum(r[2] for r in rows),
+                profiled_launches=profiled_last())
+
+
+def phase_storage(arrays, queries, gt, root):
+    """The 10k index that `phase_write_load` wrote, and its DiskANN
+    placement written here, searched from their files by
+    `HostIndex(device="cuda")`: 256 queries in batches of 64 at L=256,
+    rerank 100; aisaq f32 and int8 with prefetch 0 and 4, diskann f32 and
+    int8 (counts reset just before, read just after); aisaq against the
+    same search with device="cpu"; then the peak device bytes of one batch
+    and one batch under the profiler. Returns the path's launches and
+    peak bytes."""
+    from repro_torch.core.index_io import HostIndex, write_index
+    from repro_torch.core.pq import recall_at
+    from repro_torch.kernels import _build
+    base, graph, cents, codes = arrays
+    path = os.path.join(root, "sift10k")
+    dpath = os.path.join(root, "sift10k_diskann")
+    kw = dict(vectors=base, graph=graph, centroids=cents, codes=codes,
+              metric="l2")
+    write_index(dpath, mode="diskann", **kw)
+    # a relabelled copy with the same centroids, for phase_switch
+    write_index(os.path.join(root, "sift10k_rl"), mode="aisaq",
+                relabel=True, **kw)
+    idx = HostIndex.load(path, device="cuda")
+    didx = HostIndex.load(dpath, device="cuda")
+    runs, druns = {}, {}
+    _build.reset_launch_counts()
+    for adc in ("f32", "int8"):
+        for pf in (0, 4):
+            idx.cache.wait_prefetch()
+            idx.cache.clear()
+            runs[adc, pf] = storage_search(idx, queries, adc_dtype=adc,
+                                           prefetch=pf)
+        druns[adc] = storage_search(didx, queries, adc_dtype=adc)
+    launches = dict(_build.launch_counts)
+    cpu = HostIndex.load(path, device="cpu")
+    agree = {adc: agreement(runs[adc, 0][0],
+                            storage_search(cpu, queries, adc_dtype=adc)[0])
+             for adc in ("f32", "int8")}
+    cpu.close()
+    rec = {adc: recall_at(runs[adc, 0][0], gt, 10) for adc in ("f32", "int8")}
+    q64 = queries[:STORAGE_BATCH]
+    skw = dict(L=SEARCH_L, rerank=RERANK)
+    peak = {adc: peak_search_bytes(lambda a=adc: idx.search_batch(
+        q64, 10, adc_dtype=a, **skw)) for adc in ("f32", "int8")}
+    prof = storage_profile(lambda: idx.search_batch(q64, 10, **skw))
+    for (adc, pf), (ids, st, wall) in runs.items():
+        log("storage", n=len(base), placement="aisaq", adc=adc, prefetch=pf,
+            batch=STORAGE_BATCH, queries=len(queries),
+            qps=f"{len(queries) / wall:.1f}", wall_s=f"{wall:.3f}",
+            recall10=recall_at(ids, gt, 10),
+            rerank_ios=sum(s.rerank_ios for s in st),
+            **{k: round(v, 4) for k, v in per_query(st).items()})
+    for adc, (ids, st, wall) in druns.items():
+        log("storage", n=len(base), placement="diskann", adc=adc, prefetch=0,
+            batch=STORAGE_BATCH, queries=len(queries),
+            qps=f"{len(queries) / wall:.1f}", wall_s=f"{wall:.3f}",
+            recall10=recall_at(ids, gt, 10),
+            agreement_with_aisaq=agreement(ids, runs[adc, 0][0]),
+            **{k: round(v, 4) for k, v in per_query(st).items()})
+    log("storage", load_time_s_aisaq=f"{idx.load_time_s:.4f}",
+        load_time_s_diskann=f"{didx.load_time_s:.4f}",
+        resident_bytes_aisaq=idx.resident_bytes(),
+        resident_bytes_diskann=didx.resident_bytes(),
+        cpu_agreement_f32=agree["f32"], cpu_agreement_int8=agree["int8"],
+        int8_recall_gap=f"{abs(rec['f32'] - rec['int8']):.4f}",
+        prefetch_same_ids=True,
+        peak_device_bytes_b64_f32=peak["f32"],
+        peak_device_bytes_b64_int8=peak["int8"],
+        launches=json.dumps(launches, separators=(",", ":")))
+    log("storage", profile="aisaq f32 batch 64", **prof)
+    for adc in ("f32", "int8"):
+        require(np.array_equal(runs[adc, 0][0], runs[adc, 4][0]),
+                f"{adc}: prefetch 4 changed the ids")
+        require(recall_at(druns[adc][0], gt, 10) >= 0.8,
+                f"diskann {adc} storage recall")
+    require(min(agree.values()) >= 0.99,
+            f"storage search agrees {agree} with device='cpu' (< 0.99)")
+    require(rec["f32"] >= 0.8, f"storage recall@10 {rec['f32']} < 0.8")
+    require(abs(rec["f32"] - rec["int8"]) <= 0.01,
+            f"storage int8 recall gap {abs(rec['f32'] - rec['int8'])}")
+    require(all(launches[k] > 0 for k in STORAGE_KERNELS),
+            f"a kernel was not launched on the storage path: {launches}")
+    idx.close(), didx.close()
+    return launches, peak
+
+
+def drop_pages(path: str) -> None:
+    """Drop a file's pages from the page cache (they are clean after the
+    writer's fsync), so the next reads go to the device."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+
+
+def phase_storage1m(arrays, queries, root, peak_10k):
+    """The 1M deployment index written through the port's `write_index`
+    (8.19 GB of chunks at 2 blocks a node) and searched from its file at
+    batches of 64 and 256, f32 and int8: once with the file's pages
+    dropped (cold) and once warm, each with an empty block cache. Recall is
+    not judged (random graph). N is cut in steps of 100k when the disk
+    lacks room. Returns the index's path."""
+    import shutil
+    import torch
+    from repro_torch.configs import SIFT1M as cfg
+    from repro_torch.core.chunk_layout import ChunkLayout
+    from repro_torch.core.index_io import HostIndex, write_index
+    from repro_torch.core.vamana import random_regular_graph
+    base, graph, cents, codes = arrays
+    n = len(base)
+    lay = ChunkLayout("aisaq", cfg.dim, "float32", cfg.R, cfg.pq_m)
+    free = shutil.disk_usage(root).free
+
+    def need(k):       # chunks.bin + pq_codes.npy + margin
+        return lay.file_size(k) + k * cfg.pq_m + (256 << 20)
+
+    log("storage1m", disk_free_bytes=free, needed_bytes=need(n), root=root)
+    if need(n) > free:
+        n = (free - (256 << 20)) // (lay.io_bytes + cfg.pq_m) \
+            // 100_000 * 100_000
+        require(n >= 100_000, f"no room for a 100k index: {free} B free")
+        graph = random_regular_graph(n, cfg.R, seed=0,
+                                     device="cuda").cpu().numpy()
+        log("storage1m", cut_n=n, reason="disk space")
+    path = os.path.join(root, "sift1m")
+    t0 = time.perf_counter()
+    write_index(path, vectors=base[:n], graph=graph[:n], centroids=cents,
+                codes=codes[:n], metric="l2", mode="aisaq")
+    t_write = time.perf_counter() - t0
+    cbin = os.path.join(path, "chunks.bin")
+    size = os.path.getsize(cbin)
+    log("storage1m", n=n, write_s=f"{t_write:.1f}", chunks_bytes=size,
+        io_bytes=lay.io_bytes)
+    require(size == lay.file_size(n), "chunks.bin size")
+    drop_pages(cbin)
+    idx = HostIndex.load(path, device="cuda")
+    peak = {}
+    for adc in ("f32", "int8"):
+        for nq in (64, 256):
+            for state in ("cold", "warm"):
+                if state == "cold":
+                    drop_pages(cbin)
+                idx.cache.clear()
+                ids, st, wall = storage_search(idx, queries[:nq], nq=nq,
+                                               adc_dtype=adc)
+                require(ids.shape == (nq, 10) and (ids >= 0).all(),
+                        "1M storage search returned bad ids")
+                log("storage1m", adc=adc, batch=nq, pages=state,
+                    qps=f"{nq / wall:.1f}", wall_ms=f"{wall * 1e3:.1f}",
+                    **{k: round(v, 4) for k, v in per_query(st).items()})
+        peak[adc] = peak_search_bytes(lambda a=adc: idx.search_batch(
+            queries[:64], 10, L=SEARCH_L, rerank=RERANK, adc_dtype=a))
+    prof = storage_profile(lambda: idx.search_batch(
+        queries[:64], 10, L=SEARCH_L, rerank=RERANK))
+    log("storage1m", load_time_s=f"{idx.load_time_s:.4f}",
+        resident_bytes=idx.resident_bytes(),
+        peak_device_bytes_b64_f32=peak["f32"],
+        peak_device_bytes_b64_int8=peak["int8"],
+        peak_minus_10k_f32=peak["f32"] - peak_10k["f32"],
+        hbm_table_bytes_avoided=n * lay.device_stride)
+    log("storage1m", profile="f32 batch 64, warm", **prof)
+    idx.close()
+    for adc in ("f32", "int8"):
+        require(max(peak[adc], peak_10k[adc]) <= 32 << 20,
+                f"{adc}: a storage search's peak device bytes exceed 32 MB")
+        require(abs(peak[adc] - peak_10k[adc]) < 1 << 20,
+                f"{adc}: peak device bytes differ by >= 1 MB between 10k "
+                f"and {n}")
+    return path
+
+
+def phase_switch(root, path_1m):
+    """`IndexManager` on the card over two 10k indices that share centroids
+    (the written index and its relabelled copy), then over the 10k and 1M
+    indices: the median time of 20 alternating switches and each index's
+    load time."""
+    from repro_torch.core.index_io import HostIndex
+    from repro_torch.core.index_switch import IndexManager
+    p10k = os.path.join(root, "sift10k")
+    for pair, other in (("10k_10k_shared_centroids",
+                         os.path.join(root, "sift10k_rl")),
+                        ("10k_1m", path_1m)):
+        paths = {"a": p10k, "b": other}
+        mgr = IndexManager(paths, device="cuda")
+        times = [mgr.switch("ab"[i % 2]) for i in range(20)]
+        loads = {}
+        for k, p in paths.items():
+            h = HostIndex.load(p, device="cuda")
+            loads[k] = round(h.load_time_s, 5)
+            h.close()
+        log("switch", pair=pair, switches=len(times),
+            median_switch_ms=f"{np.median(times) * 1e3:.3f}",
+            first_switch_ms=f"{times[0] * 1e3:.3f}",
+            load_time_s=json.dumps(loads),
+            centroid_shares=mgr.pool.stats()["centroid_shares"],
+            resident_bytes=mgr.resident_bytes())
+        mgr.close()
+
+
+def phase_serve_launch():
+    """`repro_torch.launch.serve.main` on the card over its demo index."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        report = serve.main(["--queries", "200"])
+    for line in buf.getvalue().splitlines():
+        log("serve_launch", printed=repr(line))
+    log("serve_launch", qps=f"{report['qps']:.1f}",
+        p50_ms=f"{report['latency']['p50_ms']:.3f}",
+        p99_ms=f"{report['latency']['p99_ms']:.3f}",
+        device=report["device"], resident_bytes=report["resident_bytes"])
+    require(report["device"].startswith("cuda") and report["qps"] > 0,
+            "serve did not run on the card")
 
 
 def adc_bytes_ops(nq, n, m, ks=256):
@@ -1564,7 +1886,12 @@ def phase_recsys(n_requests: int = 64, k: int = 100, rerank_mult: int = 4):
     serve(batches[0], "graph")[0].cpu()
     one_ms = (time.perf_counter() - t0) * 1e3
     syncs, _ = host_syncs(lambda: serve(batches[0], "graph")[0].cpu())
-    rows, _ = profile_window(lambda: serve(batches[0], "graph")[0].cpu(),
+    # the profiler watches the same request launched eagerly (the graph's
+    # kernels, one launch each): a graph replay in this window crashed the
+    # process in cudaGraphLaunch (SIGSEGV) in three of nine full runs on an
+    # H100, never outside a profiler window; the replay's own device time
+    # comes from CUDA events below
+    rows, _ = profile_window(lambda: serve(batches[0])[0].cpu(),
                              required=False)
     busy_ms = sum(r[0] for r in rows)
     on_card = {"seq": torch.from_numpy(batches[0]["seq"]).cuda()}
@@ -1589,7 +1916,7 @@ def phase_recsys(n_requests: int = 64, k: int = 100, rerank_mult: int = 4):
         sort_1m_ms=f"{sort_ms:.4f}", topk400_1m_ms=f"{topk_ms:.4f}",
         launches=json.dumps(launches, separators=(",", ":")))
     log("recsys_profile", request_ms=f"{one_ms:.4f}",
-        device_busy_ms=f"{busy_ms:.4f}",
+        profiled="eager request", device_busy_ms=f"{busy_ms:.4f}",
         device_idle_share=f"{1 - busy_ms / one_ms:.4f}",
         events_replay_ms=f"{replay_ms:.4f}",
         events_idle_share=f"{1 - replay_ms / one_ms:.4f}",
@@ -1690,6 +2017,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     keep_port_graphs()
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run_phases(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_phases(root: str) -> int:
+    """Every phase in order, the run's index directories under `root`."""
+    import torch
     phase_env()
     errs = phase_parity()
     idx, lay, queries, gt, arrays = build_index_10k()
@@ -1699,17 +2036,23 @@ def main() -> int:
     launches, served = phase_main_path(idx, lay, queries, gt)
     times = kernel_times(idx, lay, queries)
     phase_search_graph(idx, lay, queries)
-    phase_write_load(idx, lay, queries, arrays)
+    phase_write_load(idx, lay, queries, arrays, root)
     phase_diskann(arrays, idx, lay, queries, gt, served)
-    del idx, arrays
+    del idx
     torch.cuda.empty_cache()
-    phase_deployment()
+    arrays_1m, queries_1m = phase_deployment()
     torch.cuda.empty_cache()
     rec_launches, adc, rec_errs = phase_recsys()
     torch.cuda.empty_cache()
     bulk_launches, bulk, bulk_errs = phase_bulk_adc()
     torch.cuda.empty_cache()
     phase_adc_report(adc, bulk, adc_ops)
+    storage_launches, peak_10k = phase_storage(arrays, queries, gt, root)
+    path_1m = phase_storage1m(arrays_1m, queries_1m, root, peak_10k)
+    del arrays_1m
+    phase_switch(root, path_1m)
+    shutil.rmtree(path_1m)
+    phase_serve_launch()
     log("profiler", windows=len(PROFILED_LAUNCHES),
         port_graphs_kept=len(KEPT_GRAPHS),
         complete=sum(s == n for s, n, _, _ in PROFILED_LAUNCHES),
@@ -1737,6 +2080,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SRC,
             "replaces": REPLACES[name], "launches": launches[name],
+            "launches_storage": storage_launches.get(name, 0),
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b, "bound_by": by,
             "library_ms": t["library_ms"]})

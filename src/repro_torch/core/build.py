@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import IndexConfig
-from repro_torch.core.index_io import _NAV_NOT_PORTED, write_index
+from repro_torch.core import nav as _nav
+from repro_torch.core.index_io import write_index
 from repro_torch.core.pq import encode, train_codebooks
 from repro_torch.core.vamana import build_vamana, medoid
 from repro_torch.device import DeviceLike, resolve_device, to_tensor
@@ -39,7 +40,10 @@ def build_index(path: str, vectors: np.ndarray, cfg: IndexConfig, *,
                 init_idx: Optional[np.ndarray] = None,
                 shared_centroids=None, graph: Optional[np.ndarray] = None,
                 verbose: bool = False, relabel: bool = False,
-                nav: bool = False, device: DeviceLike = None) -> dict:
+                nav: bool = False, nav_fraction: Optional[float] = None,
+                nav_degree: Optional[int] = None, nav_seed: int = 0,
+                nav_method: Optional[str] = None,
+                device: DeviceLike = None) -> dict:
     """Build one index directory from raw vectors (N, d) float32 or uint8.
 
     PQ: `shared_centroids` (m, ks, dsub) lets several corpora in one vector
@@ -49,12 +53,19 @@ def build_index(path: str, vectors: np.ndarray, cfg: IndexConfig, *,
     of that sample. Without `init_idx` the rows come from `draw_init_idx`
     and meta.json records it under `pq_init`. `graph` (N, R) skips the
     Vamana build. `relabel=True` applies the graph-locality permutation at
-    pack time. `nav=True` is not ported and raises NotImplementedError.
+    pack time. `nav=True` also builds the in-memory navigation tier
+    (`core.nav`; the `nav_*` knobs default to its DEFAULT_* constants).
     Returns the meta dict (plus the build's `build_pq_s` and
     `build_graph_s`).
     """
-    if nav:
-        raise NotImplementedError(_NAV_NOT_PORTED)
+    nav_kw = dict(nav=nav,
+                  nav_fraction=_nav.DEFAULT_FRACTION
+                  if nav_fraction is None else nav_fraction,
+                  nav_degree=_nav.DEFAULT_DEGREE
+                  if nav_degree is None else nav_degree,
+                  nav_seed=nav_seed,
+                  nav_method=_nav.DEFAULT_METHOD
+                  if nav_method is None else nav_method)
     dev = resolve_device(device)
     mode = mode or cfg.mode
     t0 = time.perf_counter()
@@ -82,7 +93,7 @@ def build_index(path: str, vectors: np.ndarray, cfg: IndexConfig, *,
     meta = write_index(path, vectors=vectors, graph=graph,
                        centroids=centroids, codes=codes, metric=cfg.metric,
                        mode=mode, block_bytes=cfg.block_bytes, n_ep=cfg.n_ep,
-                       entry_points=ep, relabel=relabel,
+                       entry_points=ep, relabel=relabel, **nav_kw,
                        extra_meta=dict(build_pq_s=t_pq,
                                        build_graph_s=t_graph, **extra))
     if verbose:

@@ -15,6 +15,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
+
 
 def _dists(data: np.ndarray, q: np.ndarray, ids: np.ndarray, metric: str
            ) -> np.ndarray:
@@ -139,9 +141,10 @@ def build_vamana(data: np.ndarray, *, R: int, L: int, alpha: float = 1.2,
 
 
 def random_regular_graph(n: int, R: int, *, seed: int = 0,
-                         device: torch.device | str = "cpu") -> torch.Tensor:
+                         device: DeviceLike = None) -> torch.Tensor:
     """The random R-regular digraph `build_vamana` starts from, drawn on
-    `device`: (n, R) int32, each row R distinct ids other than its own.
+    `device` (None: the card, as every entry point; "cpu" asks for the
+    CPU): (n, R) int32, each row R distinct ids other than its own.
 
     Ids are drawn with replacement; each repeated id within a row is drawn
     again until no row holds one, so the result is exact without a host
@@ -149,6 +152,7 @@ def random_regular_graph(n: int, R: int, *, seed: int = 0,
     """
     if n <= R:
         raise ValueError(f"need n > R for an R-regular digraph (n={n}, R={R})")
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     rows = torch.arange(n, device=device)[:, None].expand(n, R)
 

@@ -84,13 +84,13 @@ def parse_chunks_words(words: torch.Tensor, layout: ChunkLayout):
 def quantize_lut(lut: torch.Tensor):
     """Symmetric per-query int8 LUT quantization (the reference recipe).
 
-    lut (nq, m, ks) f32 -> (lut_q8 (nq, m, ks) int8, scale (nq,) f32);
+    lut (..., m, ks) f32 -> (lut_q8 (..., m, ks) int8, scale (...,) f32);
     dequantization is lut_q8 * rescale127(scale). `torch.round` rounds
     half to even, as jnp.round and np.round do, so the codes are bit-equal.
     """
-    scale = lut.abs().amax(dim=(1, 2))
+    scale = lut.abs().amax(dim=(-2, -1))
     lut_q8 = torch.clamp(torch.round(
-        lut / torch.clamp_min(scale[:, None, None], 1e-20) * 127.0),
+        lut / torch.clamp_min(scale[..., None, None], 1e-20) * 127.0),
         -127, 127).to(torch.int8)
     return lut_q8, scale
 
@@ -105,12 +105,17 @@ def dequantize_lut(lut: torch.Tensor) -> torch.Tensor:
 
 def pq_lut_ref(queries: torch.Tensor, centroids: torch.Tensor, *,
                metric: str) -> torch.Tensor:
-    """(q, d), (m, ks, dsub) -> (q, m, ks) f32."""
+    """(q, d), (m, ks, dsub) -> (q, m, ks) f32.
+
+    The cross term is an elementwise product summed over dsub, not a
+    batched matmul: on the CPU a matmul's blocking depends on the batch
+    size, and a query's LUT must have the same bits in a batch of one as in
+    the full batch (the storage search's scalar oracle relies on it)."""
     full_fp32()
     q = queries.shape[0]
     m, ks, dsub = centroids.shape
     qs = queries.float().reshape(q, m, dsub)
-    cross = torch.einsum("qmd,mkd->qmk", qs, centroids)
+    cross = (qs[:, :, None, :] * centroids[None]).sum(-1)
     if metric == "mips":
         return (-cross).contiguous()
     qn = (qs * qs).sum(-1)                                 # (q, m)

@@ -1,5 +1,8 @@
-"""Batched query serving over the device search (port of the device half
-of `repro.serving.engine` plus a copy of its `Request` / `ServingEngine`).
+"""Batched query serving (port of `repro.serving.engine`): the search
+factories over the device search (`make_device_search_fn`) and over the
+storage-backed `HostIndex` (`make_host_search_fn`,
+`make_host_search_dist_fn`, `exact_distances`), plus a copy of `Request`
+and `ServingEngine`.
 
 The engine batches per corpus, switches indices, and runs the search
 backend; `hedge=2` issues each batch to two replicas and takes the first
@@ -19,9 +22,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.device_index import DeviceIndex, beam_search_device
-from repro_torch.core.chunk_layout import ChunkLayout
+from repro_torch.core.chunk_layout import ChunkLayout, parse_chunk
+from repro_torch.core.traversal import SearchStats
 from repro_torch.device import DeviceLike, resolve_device, to_tensor
 from repro_torch.kernels import ops
+from repro_torch.kernels.rerank import rerank as rerank_kernel
 
 
 def make_device_search_fn(index: DeviceIndex, layout: ChunkLayout, *,
@@ -66,6 +71,84 @@ def make_device_search_fn(index: DeviceIndex, layout: ChunkLayout, *,
     return search
 
 
+def make_host_search_fn(host_index, *, L: int = 48, w: int = 4,
+                        prefetch: int = 0, adc_dtype: str = "f32",
+                        rerank: Optional[int] = None,
+                        pipeline: Optional[bool] = None,
+                        gap=None, entry: str = "auto"):
+    """Wrap `HostIndex.search_batch` (the storage-backed path, its
+    arithmetic on the index's device) into the `(queries, k) -> ids`
+    callable `ServingEngine` consumes. `prefetch` enables speculative
+    next-hop block reads; `pipeline` (None = on iff prefetch > 0) keeps
+    two hops in flight; `gap` tunes readahead coalescing (None = prefetch
+    depth, "auto" = histogram-tuned); `adc_dtype="int8"` serves through the
+    int8 LUT; `rerank` selects the result tier (None = traversal pool,
+    0 = PQ-only, r > 0 = exact rerank of the top-r candidates — the list
+    is widened to r so the full depth exists); `entry` selects the seeding
+    ("auto" = nav iff the index carries the tier)."""
+    def search(queries: np.ndarray, k: int) -> np.ndarray:
+        ids, _ = host_index.search_batch(queries, k,
+                                         L=max(L, k, rerank or 0), w=w,
+                                         prefetch=prefetch,
+                                         adc_dtype=adc_dtype, rerank=rerank,
+                                         pipeline=pipeline, gap=gap,
+                                         entry=entry)
+        return ids
+
+    return search
+
+
+def exact_distances(host_index, queries: np.ndarray, ids: np.ndarray
+                    ) -> np.ndarray:
+    """Exact f32 distances (metric from meta.json) for result LABELS.
+
+    A scatter-gather merge across shards needs scores comparable across
+    shards, which per-shard PQ distances are not, so shard workers rescore
+    their answers exactly: the vectors are read from storage, sent to the
+    index's device as one (nq, k, d) batch and scored by the gathered
+    rerank kernel, the exact rerank tier's arithmetic. Padding ids (< 0)
+    map to +inf.
+    """
+    lut = getattr(host_index, "_label_to_storage", None)
+    if lut is None:
+        n2o = host_index.new_to_old
+        lut = {} if n2o is None else \
+            {int(lab): i for i, lab in enumerate(n2o)}
+        host_index._label_to_storage = lut  # memoized; index is immutable
+    st = SearchStats()
+    ids = np.asarray(ids)
+    cand = np.zeros(ids.shape + (host_index.layout.dim,), np.float32)
+    for i, j in zip(*np.nonzero(ids >= 0)):
+        lab = int(ids[i, j])
+        node = lut.get(lab, lab) if lut else lab
+        vec, _, _ = parse_chunk(host_index._read_chunk(node, st),
+                                host_index.layout)
+        cand[i, j] = vec.astype(np.float32)
+    dev = host_index.device
+    d = rerank_kernel(to_tensor(queries, dev, torch.float32),
+                      torch.from_numpy(cand).to(dev),
+                      metric=host_index.meta["metric"]).cpu().numpy()
+    return np.where(ids >= 0, d, np.float32(np.inf)).astype(np.float32)
+
+
+def make_host_search_dist_fn(host_index, *, L: int = 48, w: int = 4,
+                             prefetch: int = 0, adc_dtype: str = "f32",
+                             rerank: Optional[int] = None,
+                             pipeline: Optional[bool] = None,
+                             gap=None, entry: str = "auto"):
+    """`(queries, k) -> (ids, dists)` twin of `make_host_search_fn`: the
+    same search plus exact distances for a cross-shard merge."""
+    base = make_host_search_fn(host_index, L=L, w=w, prefetch=prefetch,
+                               adc_dtype=adc_dtype, rerank=rerank,
+                               pipeline=pipeline, gap=gap, entry=entry)
+
+    def search(queries: np.ndarray, k: int):
+        ids = base(queries, k)
+        return ids, exact_distances(host_index, queries, ids)
+
+    return search
+
+
 @dataclass
 class Request:
     query: np.ndarray
@@ -73,13 +156,26 @@ class Request:
     k: int = 10
     t_submit: float = field(default_factory=time.perf_counter)
     result: Optional[np.ndarray] = None
+    # exact distances for `result`, set when the search_fn returns an
+    # (ids, dists) pair (a scatter-gather merge needs comparable scores)
+    dists: Optional[np.ndarray] = None
     t_done: float = 0.0
     event: threading.Event = field(default_factory=threading.Event)
     error: Optional[Exception] = None    # set instead of result on failure
+    # absolute perf_counter deadline; a worker assembling a batch drops
+    # the request (TimeoutError) once it has passed
+    deadline: Optional[float] = None
+    # obs.trace.Span this request belongs to (None for untraced traffic)
+    span: Optional[object] = None
 
     @property
     def latency_s(self) -> float:
         return self.t_done - self.t_submit
+
+    def expired(self, now: Optional[float] = None) -> bool:
+        if self.deadline is None:
+            return False
+        return (time.perf_counter() if now is None else now) > self.deadline
 
 
 class ServingEngine:

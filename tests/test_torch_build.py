@@ -122,18 +122,39 @@ def test_write_index_takes_tensors(tmp_path, small_corpus, built_graph,
 
 
 def test_nav_is_not_ported(tmp_path, small_corpus, built_graph,
-                           pq_artifacts):
+                           pq_artifacts, monkeypatch):
+    """The navigation tier is ported now (the name is kept from when nav
+    raised): write_index(nav=True) and build_index(nav=True) write the
+    reference's directory byte for byte. np.savez stamps each member with
+    the local time, so the clock is held still while both write."""
+    import time
+    monkeypatch.setattr(time, "localtime",
+                        lambda *a: time.struct_time((2024, 1, 1, 0, 0, 0,
+                                                     0, 1, 0)))
     base, _, _ = small_corpus
     cents, codes = pq_artifacts
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 6"):
-        tio.write_index(str(tmp_path / "x"), vectors=base, graph=built_graph,
-                        centroids=cents, codes=codes, metric="l2",
-                        mode="aisaq", nav=True)
-    cfg = IndexConfig("t", 1500, 48, R=20, pq_m=12)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 6"):
-        tbuild.build_index(str(tmp_path / "y"), base, cfg, nav=True,
-                           device="cpu")
-    assert not os.path.exists(tmp_path / "x")
+    for relabel in (False, True):
+        kw = dict(vectors=base, graph=built_graph, centroids=cents,
+                  codes=codes, metric="l2", mode="aisaq", nav=True,
+                  nav_fraction=0.03, relabel=relabel)
+        want = jio.write_index(str(tmp_path / f"ref{relabel}"), **kw)
+        got = tio.write_index(str(tmp_path / f"port{relabel}"), **kw)
+        assert got == want and "nav" in got
+        a = _files(tmp_path / f"ref{relabel}")
+        assert a == _files(tmp_path / f"port{relabel}")
+        assert "nav_graph.npz" in a
+    jcfg, cfg = _cfgs(len(base))
+    kw = dict(graph=built_graph, seed=3, shared_centroids=cents, nav=True,
+              nav_degree=6)
+    want = jbuild.build_index(str(tmp_path / "bref"), base, jcfg, **kw)
+    got = tbuild.build_index(str(tmp_path / "bport"), base, cfg, **kw,
+                             device="cpu")
+    times = ("build_pq_s", "build_graph_s")
+    assert {k: v for k, v in got.items() if k not in times} == \
+        {k: v for k, v in want.items() if k not in times}
+    a, b = _files(tmp_path / "bref"), _files(tmp_path / "bport")
+    for f in ("chunks.bin", "pq_codes.npy", "nav_graph.npz"):
+        assert a[f] == b[f], f
 
 
 @pytest.mark.parametrize("damage", ["missing", "truncated", "no_keys",

@@ -179,10 +179,11 @@ def test_mask_intra_dups_matches_jax():
 
 
 def test_random_regular_graph_rows_are_distinct():
-    g = random_regular_graph(300, 56, seed=3)
+    g = random_regular_graph(300, 56, seed=3, device="cpu")
     assert g.shape == (300, 56) and g.dtype == torch.int32
     srt = g.sort(dim=1).values
     assert not (srt[:, 1:] == srt[:, :-1]).any()
     assert not (g == torch.arange(300)[:, None]).any()
     assert int(g.min()) >= 0 and int(g.max()) < 300
-    assert torch.equal(g, random_regular_graph(300, 56, seed=3))
+    assert torch.equal(g, random_regular_graph(300, 56, seed=3,
+                                               device="cpu"))

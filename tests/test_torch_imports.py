@@ -2,6 +2,7 @@
 neither jax nor the JAX package, its kernel modules import without nvcc,
 and its entry points refuse to run on the CPU unless asked to."""
 import ast
+import json
 import os
 import pathlib
 import subprocess
@@ -51,6 +52,50 @@ def test_import_leaves_jax_and_repro_unloaded():
     assert res.returncode == 0, res.stderr + res.stdout
 
 
+#: the modules of the storage-backed search slice
+STORAGE_MODULES = ("obs", "obs.metrics", "obs.trace", "core.adc",
+                   "core.block_cache", "core.nav", "core.traversal",
+                   "core.index_io", "core.index_switch", "serving.pool",
+                   "serving.engine", "launch.serve")
+
+_BLOCKER = """
+import importlib, json, sys
+class _Blocked:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in {forbidden!r}:
+            raise ImportError('blocked: ' + name)
+        return None
+sys.meta_path.insert(0, _Blocked())
+out = {{}}
+for m in {modules!r}:
+    try:
+        importlib.import_module('repro_torch.' + m)
+        out[m] = 'ok'
+    except Exception as e:
+        out[m] = repr(e)
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def blocked_imports():
+    """One process where any import of jax or repro raises imports each
+    storage module in turn: module -> 'ok' or the error."""
+    code = _BLOCKER.format(forbidden=set(FORBIDDEN),
+                           modules=STORAGE_MODULES)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", STORAGE_MODULES)
+def test_storage_modules_import_with_jax_and_repro_blocked(blocked_imports,
+                                                           module):
+    assert blocked_imports[module] == "ok"
+
+
 def test_kernel_modules_import_without_building():
     """Nothing is compiled at import: the library is built at first launch."""
     from repro_torch.kernels import _build
@@ -98,5 +143,24 @@ def test_entry_points_need_a_card_or_device_cpu(small_corpus, built_graph,
     idx, lay = from_arrays(base, built_graph, cents, codes, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_device_search_fn(idx, lay)
+    from repro_torch.core.index_io import HostIndex
+    from repro_torch.core.index_switch import IndexManager
+    from repro_torch.core.vamana import random_regular_graph
+    from repro_torch.launch import serve
+    from repro_torch.serving.pool import WarmIndexPool
+    paths = {"a": index_dirs["aisaq"]}
+    storage = [
+        lambda **kw: HostIndex.load(index_dirs["aisaq"], **kw).close(),
+        lambda **kw: WarmIndexPool(paths, **kw).close(),
+        lambda **kw: IndexManager(paths, **kw).close(),
+        lambda **kw: random_regular_graph(100, 8, **kw),
+    ]
+    for call in storage:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        call(device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--queries", "2", "--corpora",
+                    f"a={index_dirs['aisaq']}"])
     assert make_device_search_fn(idx, lay, device="cpu")(q[:2], 5).shape \
         == (2, 5)
