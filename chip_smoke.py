@@ -92,11 +92,40 @@ non-zero):
  11. `[switch]`: `IndexManager` over two 10k indices sharing centroids,
      then over the 10k and 1M indices: median switch time, load times;
  12. `[serve_launch]`: `repro_torch.launch.serve.main` on the card over
-     its demo index: QPS and latency as it prints them.
+     its demo index: QPS and latency as it prints them;
+ 13. `[dynamic]`: `DynamicHostIndex(device="cuda")` over a copy of the
+     10k index: 512 held-out vectors of the same distribution inserted
+     while 3 reader threads search (L=256, k=10) the whole time, taking
+     turns with the inserts at the process's search gate; inserts/s,
+     insert p50/p99, reader QPS, the path's launches of every kernel
+     (`fused_hop_f32` and `pq_lut` required), the peak device bytes of
+     one reader search; then 64 labels deleted, filtered searches (no
+     tombstoned label), flush, reload (n = 10,512, no CRC mismatch),
+     recall@10 over the live grown set (the deleted vectors left out of
+     the ground truth, no deleted label in the results) and
+     self-recall@1 of the live inserts (>= 0.8 each), and `compact` to a
+     sibling directory whose card and CPU searches agree (>= 0.99);
+ 14. `[crash_drill]`: every `KillSwitch` tick of one insert plus its flush
+     on a 2,000-vector index: crash, abandon, recover on the card; n pre-
+     or post-insert (post if committed), no dangling edge, no CRC
+     mismatch, an empty journal, a rolled-forward vector at rank 1;
+ 15. `[service]`: `RetrievalService` over `WarmIndexPool(device="cuda")`
+     with the 10k index and its relabelled copy, 512 requests from 8
+     client threads, every answer equal to a direct search on the card;
+     QPS, p50/p99, per-corpus stats; then a corpus whose journal holds a
+     torn frame, recovered and reported in the pool's `recoveries`;
+ 16. `[cluster]`: the 10k vectors in 2 shards of 5,000 (global labels)
+     served by `ShardCluster` (2 spawned workers on the card) behind
+     `ShardRouter`: 256 queries, every answer bit-identical to
+     `merge_topk` of the shards' single-process searches on the card;
+     worker 1 SIGKILLed: a partial answer without shard 1, then full
+     coverage again within 60 s, never quarantined; worker start and
+     respawn seconds, router p50/p99, each worker's kernel launches.
 Each path's launch counts are reset just before it and read just after;
-the kernels line gives the main path's as `launches` and the storage
-path's as `launches_storage`. The run's index directories live in one
-temporary directory, removed at exit.
+the kernels line gives the main path's as `launches`, the storage
+path's as `launches_storage`, the dynamic index's (inserts and readers)
+as `launches_dynamic` and the service's as `launches_service`. The run's
+index directories live in one temporary directory, removed at exit.
 Each profiled window whose counts are checked (the device ops of a
 kernel call, the served batch) must show every launch the wrappers
 counted in it (`profile_window`); the other windows (the profiled
@@ -1572,6 +1601,525 @@ def phase_serve_launch():
             "serve did not run on the card")
 
 
+# ---------------------------------------------------------------------------
+# the write half: dynamic index, crash drill, service, cluster
+# ---------------------------------------------------------------------------
+
+DYN_INSERTS = 512        # held-out vectors inserted into the 10k index
+DYN_READERS = 3
+DYN_DELETES = 64
+DYN_KERNELS = ("fused_hop_f32", "pq_lut")
+CRASH_N = 2_000          # the crash drill's index (SIFT1M widths)
+SERVICE_REQUESTS = 512
+SERVICE_CLIENTS = 8
+CLUSTER_QUERIES = 256
+CLUSTER_CLIENTS = 4
+
+
+def held_out(base, n: int):
+    """n vectors from the 10k index's distribution: `make_clustered`'s
+    mixture (its 64 centres and power-law weights, drawn from the index's
+    seed, as `repro_torch.data.vectors.make_clustered` draws them) with
+    fresh assignments and noise. Checked: the indexed vectors lie near
+    these centres."""
+    d = base.shape[1]
+    rng = np.random.default_rng(0)            # make_clustered(seed=0)
+    centers = rng.normal(size=(64, d)).astype(np.float32)
+    near = ((base[:, None, :] - centers[None]) ** 2).sum(-1).min(1)
+    require(float(near.mean()) < 0.15 ** 2 * d * 2,
+            "the held-out vectors' centres are not the index's")
+    w = 1.0 / np.arange(1, 65) ** 0.7
+    fresh = np.random.default_rng(12345)
+    assign = fresh.choice(64, size=n, p=w / w.sum())
+    x = centers[assign] + 0.15 * fresh.normal(size=(n, d)).astype(
+        np.float32)
+    return x.astype(np.float32)
+
+
+def percentiles_ms(seconds) -> dict:
+    a = np.asarray(seconds) * 1e3
+    return dict(p50_ms=f"{np.percentile(a, 50):.3f}",
+                p99_ms=f"{np.percentile(a, 99):.3f}")
+
+
+def phase_dynamic(arrays, queries, root):
+    """`DynamicHostIndex(device="cuda")` over a copy of the 10k index:
+    512 held-out vectors inserted while 3 reader threads search (L=256,
+    k=10) the whole time (launch counts reset just before, read just
+    after); then 64 labels deleted, filtered searches, flush, reload, and
+    `compact` to a sibling directory searched on the card and on the CPU.
+    Searches and inserts take turns at the process's search gate
+    (`repro_torch.core.traversal`). Returns the path's launches."""
+    import threading
+    from repro_torch.core.dynamic import DynamicHostIndex
+    from repro_torch.core.index_io import HostIndex
+    from repro_torch.core.pq import groundtruth, recall_at
+    from repro_torch.kernels import _build
+    base = arrays[0]
+    held = held_out(base, DYN_INSERTS)
+    ext = np.concatenate([base, held])
+    path = os.path.join(root, "dyn10k")
+    shutil.copytree(os.path.join(root, "sift10k"), path)
+    idx = DynamicHostIndex.load(path, device="cuda")
+    peak = peak_search_bytes(lambda: idx.search(queries[0], 10, L=SEARCH_L))
+    t0 = time.perf_counter()
+    idx.search(queries[0], 10, L=SEARCH_L)
+    alone_ms = (time.perf_counter() - t0) * 1e3
+    stop = threading.Event()
+    errors, served = [], [0] * DYN_READERS
+
+    def reader(r):
+        i = r
+        while not stop.is_set():
+            try:
+                ids, _ = idx.search(queries[i % len(queries)], 10,
+                                    L=SEARCH_L)
+                require(len(ids) == 10 and (ids < idx.n + 1).all(),
+                        f"reader {r}: bad result {ids}")
+            except Exception as e:        # reported and required below
+                errors.append(repr(e))
+                return
+            served[r] += 1
+            i += DYN_READERS
+
+    def insert_all(vecs):
+        out = []
+        for v in vecs:
+            t1 = time.perf_counter()
+            labels.append(idx.insert(v))
+            out.append(time.perf_counter() - t1)
+        return out
+
+    labels = []
+    readers = [threading.Thread(target=reader, args=(r,), daemon=True)
+               for r in range(DYN_READERS)]
+    _build.reset_launch_counts()
+    for t in readers:
+        t.start()
+    t0 = time.perf_counter()
+    try:
+        lat = insert_all(held)
+    finally:
+        wall = time.perf_counter() - t0
+        stop.set()
+        for t in readers:
+            t.join(60.0)
+    launches = dict(_build.launch_counts)
+    hung = sum(t.is_alive() for t in readers)
+    log("dynamic", n=len(base), inserts=len(lat), readers=DYN_READERS,
+        inserts_per_s=f"{len(lat) / wall:.2f}", insert_wall_s=f"{wall:.2f}",
+        **{f"insert_{k}": v for k, v in percentiles_ms(lat).items()},
+        reader_queries=sum(served),
+        reader_qps=f"{sum(served) / wall:.2f}",
+        reader_errors=len(errors), readers_hung=hung,
+        search_alone_ms=f"{alone_ms:.2f}",
+        peak_device_bytes_reader_search=peak,
+        launches=json.dumps(launches, separators=(",", ":")))
+    require(not errors, f"reader errors: {errors[:3]}")
+    require(hung == 0, f"{hung} reader threads did not end")
+    require(min(served) > 0, f"a reader served nothing: {served}")
+    require(labels == list(range(len(base), len(ext))),
+            "insert labels are not the next ids")
+    require(all(launches[k] > 0 for k in DYN_KERNELS),
+            f"a kernel was not launched on the dynamic path: {launches}")
+    # deletes: the rank-1 answers of 64 queries, then filtered searches
+    q64 = queries[:DYN_DELETES]
+    first, _ = idx.search_batch(q64, 1, L=SEARCH_L)
+    victims = sorted(set(int(i) for i in first[:, 0]))
+    for lab in victims:
+        idx.delete(lab)
+    dead = set(victims)
+    leaked = 0
+    for q in q64:
+        ids, _ = idx.search(q, 10, L=SEARCH_L)
+        leaked += len(dead & set(int(i) for i in ids))
+        require(len(ids) == 10, "a filtered search came back short")
+    ids, _ = idx.search(queries[-1], 10, L=SEARCH_L,
+                        predicate=lambda i: i % 2 == 0)
+    require(len(ids) == 10 and all(int(i) % 2 == 0 for i in ids),
+            f"predicate search returned {ids}")
+    idx.flush()
+    crc = idx.cache.counters.crc_mismatches
+    idx.close()
+    # reload: recall over the grown set, self-recall of the inserts
+    t0 = time.perf_counter()
+    idx = DynamicHostIndex.load(path, device="cuda")
+    reload_s = time.perf_counter() - t0
+    n = int(idx.meta["n"])
+    # recall over the live set: ground truth without the deleted vectors
+    # (labels are rows of `ext`: the 10k index is not relabelled)
+    alive = np.setdiff1d(np.arange(len(ext)), sorted(dead))
+    gt = alive[groundtruth(queries, ext[alive], 10, device="cuda")]
+    got = np.concatenate([idx.search_batch(queries[s:s + 64], 10,
+                                           L=SEARCH_L)[0]
+                          for s in range(0, len(queries), 64)])
+    rec = recall_at(got, gt, 10)
+    live = [i for i, lab in enumerate(labels) if lab not in dead]
+    self_ids = np.concatenate([idx.search_batch(
+        held[live[s:s + 64]], 1, L=SEARCH_L)[0]
+        for s in range(0, len(live), 64)])[:, 0]
+    self_rec = float(np.mean(self_ids == np.asarray(labels)[live]))
+    leaked += len(dead & set(int(i) for i in got.ravel())) \
+        + len(dead & set(int(i) for i in self_ids))
+    crc += idx.cache.counters.crc_mismatches
+    # compaction to a sibling directory, searched on the card and the CPU
+    dst = os.path.join(root, "dyn10k_v2")
+    t0 = time.perf_counter()
+    cmeta = idx.compact(dst, relabel=True)
+    compact_s = time.perf_counter() - t0
+    idx.close()
+    gpu = HostIndex.load(dst, device="cuda")
+    cpu = HostIndex.load(dst, device="cpu")
+    a = gpu.search_batch(q64, 10, L=SEARCH_L)[0]
+    b = cpu.search_batch(q64, 10, L=SEARCH_L)[0]
+    agree = agreement(a, b)
+    compact_leak = len(dead & set(int(i) for i in a.ravel()))
+    gpu.close(), cpu.close()
+    log("dynamic", deleted=len(victims), tombstones_in_results=leaked,
+        reload_n=n, reload_s=f"{reload_s:.3f}",
+        recovery_journaled=0, crc_mismatches=crc,
+        recall10_live=f"{rec:.4f}", self_recall1=f"{self_rec:.4f}",
+        compact_s=f"{compact_s:.2f}", compact_n=cmeta["n"],
+        compact_cpu_agreement=f"{agree:.4f}",
+        compact_tombstones_in_results=compact_leak)
+    require(n == len(ext), f"meta n {n} after reload, want {len(ext)}")
+    require(crc == 0, f"{crc} CRC mismatches on the dynamic index")
+    require(leaked == 0, f"{leaked} tombstoned labels in results")
+    require(self_rec >= 0.8, f"self-recall@1 of the inserts {self_rec}")
+    require(rec >= 0.8, f"recall@10 over the live grown set {rec} < 0.8")
+    require(cmeta["n"] == len(ext) - len(victims), "compacted n")
+    require(compact_leak == 0, "the compacted index serves deleted labels")
+    require(agree >= 0.99, f"compacted index: card/CPU agreement {agree}")
+    return launches
+
+
+def cut_graph(graph, lo: int, hi: int) -> np.ndarray:
+    """Rows [lo, hi) of a graph as a graph of their own: edges leaving
+    the range dropped, ids shifted by lo, each row packed to the left."""
+    g = np.full((hi - lo, graph.shape[1]), -1, np.int32)
+    for i, row in enumerate(np.asarray(graph[lo:hi])):
+        keep = row[(row >= lo) & (row < hi)] - lo
+        g[i, :len(keep)] = keep
+    return g
+
+
+def crash_index(arrays, root) -> str:
+    """The first 2,000 vectors of the 10k index with their graph cut to
+    them, written by the port."""
+    from repro_torch.core.index_io import write_index
+    base, graph, cents, codes = arrays
+    path = os.path.join(root, "crash2k")
+    write_index(path, vectors=base[:CRASH_N],
+                graph=cut_graph(graph, 0, CRASH_N), centroids=cents,
+                codes=codes[:CRASH_N], metric="l2", mode="aisaq")
+    return path
+
+
+def phase_crash_drill(arrays, root):
+    """Every `KillSwitch` tick of one insert plus its flush on a 2,000-
+    vector index at SIFT1M widths: for each tick a fresh copy is crashed
+    there, abandoned, and recovered by `DynamicHostIndex.load(device=
+    "cuda")`; n is the pre- or post-insert value (post if committed), no
+    edge dangles, no CRC mismatch, the journal is empty, and a rolled-
+    forward vector is found at rank 1 by a search on the card."""
+    from repro_torch.core.dynamic import DynamicHostIndex
+    from repro_torch.core.faults import CrashPoint, KillSwitch
+    src = crash_index(arrays, root)
+    vec = arrays[0][CRASH_N]
+    work = os.path.join(root, "crash_work")
+    shutil.copytree(src, work)
+    ks = KillSwitch()
+    h = DynamicHostIndex.load(work, kill=ks, device="cuda")
+    h.insert(vec)
+    h.flush()
+    h.close()
+    shutil.rmtree(work)
+    total = ks.count
+    rec_ms, outcomes = [], {"rolled_back": 0, "rolled_forward": 0,
+                            "clean": 0}
+    t_all = time.perf_counter()
+    for at in range(1, total + 1):
+        shutil.copytree(src, work)
+        h = DynamicHostIndex.load(work, kill=KillSwitch(at=at),
+                                  device="cuda")
+        committed = False
+        try:
+            h.insert(vec)
+            committed = True
+            h.flush()
+        except CrashPoint:
+            pass
+        h.abandon()
+        t0 = time.perf_counter()
+        r = DynamicHostIndex.load(work, device="cuda")
+        rec_ms.append((time.perf_counter() - t0) * 1e3)
+        n = int(r.meta["n"])
+        require(n in (CRASH_N, CRASH_N + 1), f"at={at}: n={n}")
+        require(not committed or n == CRASH_N + 1,
+                f"at={at}: a committed insert was lost")
+        for node in range(n):
+            _, nbrs, _ = r._read_node(node)
+            live = nbrs[nbrs >= 0]
+            require(bool((live < n).all()), f"at={at}: dangling edge")
+        if n == CRASH_N + 1:
+            ids, _ = r.search(vec, 1, L=SEARCH_L)
+            require(int(ids[0]) == CRASH_N,
+                    f"at={at}: rolled-forward vector not at rank 1")
+        require(r.cache.counters.crc_mismatches == 0,
+                f"at={at}: CRC mismatch after recovery")
+        require(r.wal.size == 0, f"at={at}: journal not empty")
+        key = "rolled_back" if r.recovery["rolled_back"] else \
+            "rolled_forward" if r.recovery["rolled_forward"] else "clean"
+        outcomes[key] += 1
+        r.close()
+        shutil.rmtree(work)
+    log("crash_drill", n=CRASH_N, ticks=total,
+        median_recovery_ms=f"{np.median(rec_ms):.3f}",
+        max_recovery_ms=f"{max(rec_ms):.3f}",
+        drill_s=f"{time.perf_counter() - t_all:.1f}",
+        outcomes=json.dumps(outcomes, separators=(",", ":")))
+    require(total > 10, f"only {total} crash points")
+
+
+def phase_service(queries, root):
+    """`RetrievalService` over `WarmIndexPool(device="cuda")` with the 10k
+    index and its relabelled copy: 512 requests (k=10, L=256, rerank 100)
+    from 8 client threads, each answer equal to a direct
+    `HostIndex.search_batch` on the card; then a third corpus whose
+    wal.log holds a torn frame opens through journal recovery. Returns
+    the path's launches."""
+    import threading
+    from repro_torch.core.index_io import HostIndex
+    from repro_torch.core.wal import WAL_NAME
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import make_host_search_fn
+    from repro_torch.serving.pool import WarmIndexPool
+    from repro_torch.serving.service import RetrievalService
+    paths = {"sift10k": os.path.join(root, "sift10k"),
+             "sift10k_rl": os.path.join(root, "sift10k_rl")}
+    skw = dict(L=SEARCH_L, rerank=RERANK)
+    want = {}
+    for name, p in paths.items():
+        h = HostIndex.load(p, device="cuda")
+        fn = make_host_search_fn(h, **skw)    # the service's own search
+        want[name] = np.concatenate([fn(queries[s:s + 64], 10)
+                                     for s in range(0, len(queries), 64)])
+        h.close()
+    pool = WarmIndexPool(paths, device="cuda")
+    svc = RetrievalService(pool, num_workers=4, max_batch=16,
+                           max_wait_ms=2.0, **skw)
+    names = sorted(paths)
+    bad, errors = [], []
+
+    def client(c):
+        for i in range(c, SERVICE_REQUESTS, SERVICE_CLIENTS):
+            name, qi = names[i % 2], (i // 2) % len(queries)
+            try:
+                r = svc.submit_wait(queries[qi], corpus=name, k=10,
+                                    timeout=120.0)
+            except Exception as e:        # reported and required below
+                errors.append(repr(e))
+                return
+            if not np.array_equal(r.result, want[name][qi]):
+                bad.append((name, qi))
+
+    _build.reset_launch_counts()
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(SERVICE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300.0)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    st = svc.stats()
+    per = {c: {k: (round(v, 3) if isinstance(v, float) else v)
+               for k, v in s.items()
+               if k in ("completed", "batches", "mean_batch", "switches",
+                        "p50_ms", "p99_ms", "errors")}
+           for c, s in st["corpora"].items()}
+    # a crashed writer's directory: a torn frame in its journal
+    torn = os.path.join(root, "sift10k_torn")
+    shutil.copytree(paths["sift10k"], torn)
+    garbage = b"\xde\xad\xbe\xef" + b"\x00" * 33
+    with open(os.path.join(torn, WAL_NAME), "wb") as f:
+        f.write(garbage)
+    pool.register("torn", torn)
+    r = svc.submit_wait(queries[0], corpus="torn", k=10, timeout=120.0)
+    rec = pool.stats()["recoveries"]
+    svc.close()
+    pool.close()
+    log("service", corpora=len(paths), requests=SERVICE_REQUESTS,
+        clients=SERVICE_CLIENTS, workers=4,
+        qps=f"{SERVICE_REQUESTS / wall:.2f}", wall_s=f"{wall:.2f}",
+        p50_ms=f"{st.get('p50_ms', 0):.3f}",
+        p99_ms=f"{st.get('p99_ms', 0):.3f}",
+        mismatches=len(bad), errors=len(errors),
+        per_corpus=json.dumps(per, separators=(",", ":")),
+        launches=json.dumps(launches, separators=(",", ":")))
+    log("service", recoveries=json.dumps(rec, separators=(",", ":")),
+        torn_corpus_answer_equal=bool(np.array_equal(r.result,
+                                                     want["sift10k"][0])))
+    require(not errors and not any(t.is_alive() for t in threads),
+            f"service clients failed: {errors[:3]}")
+    require(st["total_completed"] == SERVICE_REQUESTS,
+            f"{st['total_completed']} of {SERVICE_REQUESTS} completed")
+    require(not bad, f"{len(bad)} service answers differ from a direct "
+            f"search on the card: {bad[:5]}")
+    require(set(rec) == {"torn"} and rec["torn"]["torn"]
+            and rec["torn"]["truncated_bytes"] == len(garbage),
+            f"the torn journal is not in recoveries: {rec}")
+    require(np.array_equal(r.result, want["sift10k"][0]),
+            "the recovered corpus answers differently")
+    require(all(launches[k] > 0 for k in DYN_KERNELS),
+            f"a kernel was not launched on the service path: {launches}")
+    return launches
+
+
+def shard_dirs(arrays, root):
+    """The 10k vectors in 2 shards of 5,000 with global labels, each with
+    the 10k graph cut to its rows, written by the port's `write_index`."""
+    from repro_torch.core.index_io import write_index
+    from repro_torch.core.shard_math import contiguous_shards
+    base, graph, cents, codes = arrays
+    asn = contiguous_shards(len(base), 2)
+    shards = []
+    for s in range(asn.n_shards):
+        lo, hi = asn.bounds(s)
+        p = os.path.join(root, f"shard{s}")
+        write_index(p, vectors=base[lo:hi], graph=cut_graph(graph, lo, hi),
+                    centroids=cents, codes=codes[lo:hi], metric="l2",
+                    mode="aisaq", labels=np.arange(lo, hi, dtype=np.int64))
+        shards.append({"default": p})
+    return shards
+
+
+def phase_cluster(arrays, queries, root):
+    """`ShardCluster` with 2 spawned workers on device="cuda" behind a
+    `ShardRouter`: 256 queries (k=10, L=256) from 4 router clients, each
+    answer bit-identical to `merge_topk` of the two shards' single-process
+    searches on the card; then worker 1 SIGKILLed: a partial answer
+    without shard 1, and after the respawn (heartbeat 0.1 s, slower
+    starts than three missed heartbeats) full coverage bit-identical
+    again within 60 s, the shard never quarantined."""
+    import signal
+    import threading
+    from repro_torch.core.index_io import HostIndex
+    from repro_torch.core.shard_math import merge_topk
+    from repro_torch.serving.cluster import ShardCluster
+    from repro_torch.serving.engine import make_host_search_dist_fn
+    from repro_torch.serving.router import ShardRouter, SocketShardClient
+    shards = shard_dirs(arrays, root)
+    k, L = 10, SEARCH_L
+    parts = []
+    for corpora in shards:
+        h = HostIndex.load(corpora["default"], device="cuda")
+        fn = make_host_search_dist_fn(h, L=L, w=4)
+        parts.append([fn(queries[s:s + 64], k)
+                      for s in range(0, len(queries), 64)])
+        h.close()
+    ids = [np.concatenate([p[0] for p in ps]) for ps in parts]
+    dists = [np.concatenate([p[1] for p in ps]) for ps in parts]
+    want = [merge_topk([ids[0][i], ids[1][i]], [dists[0][i], dists[1][i]],
+                       k) for i in range(len(queries))]
+    socks = tempfile.mkdtemp(prefix="socks", dir=root)
+    t0 = time.perf_counter()
+    cluster = ShardCluster(shards, socket_dir=socks, L=L, w=4,
+                           heartbeat_s=0.1, backoff_s=0.2, stable_s=5.0,
+                           device="cuda").start(ready_timeout_s=120.0)
+    start_s = time.perf_counter() - t0
+    routers = [ShardRouter([SocketShardClient(p)
+                            for p in cluster.endpoints()],
+                           min_shards=1, shard_deadline_s=30.0,
+                           endpoints_fn=cluster.endpoints)
+               for _ in range(CLUSTER_CLIENTS)]
+    try:
+        lat, bad, partial = [], [], []
+
+        def client(c):
+            for i in range(c, min(CLUSTER_QUERIES, len(queries)),
+                           CLUSTER_CLIENTS):
+                out = routers[c].search(queries[i], k)
+                lat.append(out.latency_s)
+                if out.partial:
+                    partial.append(i)
+                elif not (np.array_equal(out.ids, want[i][0])
+                          and np.array_equal(out.dists, want[i][1])):
+                    bad.append(i)
+
+        threads = [threading.Thread(target=client, args=(c,), daemon=True)
+                   for c in range(CLUSTER_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300.0)
+        wall = time.perf_counter() - t0
+        require(not any(t.is_alive() for t in threads),
+                 "router clients did not finish")
+        stats = cluster.stats()
+        wl = {s: cluster.worker_stats(s)["kernel_launches"]
+              for s in range(cluster.n_shards)}
+        ready = {s: round(v["ready_s"], 3)
+                 for s, v in stats["shards"].items()}
+        log("cluster", shards=2, queries=len(lat), clients=CLUSTER_CLIENTS,
+            start_s=f"{start_s:.2f}",
+            worker_start_s=json.dumps(ready, separators=(",", ":")),
+            qps=f"{len(lat) / wall:.2f}", **percentiles_ms(lat),
+            partial=len(partial), mismatches=len(bad),
+            worker_launches=json.dumps(wl, separators=(",", ":")))
+        require(not partial and not bad,
+                 f"{len(partial)} partial, {len(bad)} differing answers "
+                 f"under full coverage: {bad[:5]}")
+        require(all(wl[s]["fused_hop_f32"] > 0 and wl[s]["pq_lut"] > 0
+                    for s in wl),
+                f"a worker launched no search kernel: {wl}")
+        # SIGKILL worker 1: partial answers, then the respawn
+        t_kill = time.perf_counter()
+        os.kill(cluster.pid(1), signal.SIGKILL)
+        saw = None
+        while saw is None and time.perf_counter() - t_kill < 30.0:
+            out = routers[0].search(queries[0], k)
+            if out.partial:
+                saw = out
+        require(saw is not None and saw.failed_shards == [1],
+                f"the kill never degraded coverage: {saw}")
+        want0 = merge_topk([ids[0][0]], [dists[0][0]], k)
+        require(np.array_equal(saw.ids, want0[0])
+                and np.array_equal(saw.dists, want0[1]),
+                "the partial answer is not shard 0's own")
+        full = None
+        while full is None and time.perf_counter() - t_kill < 60.0:
+            out = routers[0].search(queries[1], k)
+            if not out.partial:
+                full = out
+            else:
+                time.sleep(0.05)
+        back_s = time.perf_counter() - t_kill
+        st1 = cluster.stats()["shards"][1]
+        events = [w for _, s, w in cluster.events if s == 1]
+        log("cluster", killed_shard=1, partial_failed=saw.failed_shards,
+            full_coverage_after_s=f"{back_s:.2f}",
+            respawn_ready_s=st1["ready_s"], restarts=st1["restarts"],
+            state=st1["state"], events=json.dumps(events))
+        require(full is not None, "full coverage did not come back in 60 s")
+        require(np.array_equal(full.ids, want[1][0])
+                and np.array_equal(full.dists, want[1][1]),
+                "the respawned cluster's answer differs")
+        require(st1["state"] == "serving" and st1["restarts"] >= 1
+                and not any("quarantined" in w for w in events),
+                f"shard 1 after the kill: {st1}, {events}")
+        rl = [r.stats() for r in routers]
+        log("cluster", router_full=sum(s["full"] for s in rl),
+            router_partial=sum(s["partial"] for s in rl),
+            router_retries=sum(s["retries"] for s in rl))
+    finally:
+        for r in routers:
+            r.close()
+        cluster.stop()
+
+
 def adc_bytes_ops(nq, n, m, ks=256):
     """Bytes (codes once, f32 LUT once, output once) and adds of a bulk
     ADC call with u8 codes."""
@@ -2053,6 +2601,10 @@ def run_phases(root: str) -> int:
     phase_switch(root, path_1m)
     shutil.rmtree(path_1m)
     phase_serve_launch()
+    dyn_launches = phase_dynamic(arrays, queries, root)
+    phase_crash_drill(arrays, root)
+    svc_launches = phase_service(queries, root)
+    phase_cluster(arrays, queries, root)
     log("profiler", windows=len(PROFILED_LAUNCHES),
         port_graphs_kept=len(KEPT_GRAPHS),
         complete=sum(s == n for s, n, _, _ in PROFILED_LAUNCHES),
@@ -2081,6 +2633,8 @@ def run_phases(root: str) -> int:
             "name": name, "route": "cuda", "source": SRC,
             "replaces": REPLACES[name], "launches": launches[name],
             "launches_storage": storage_launches.get(name, 0),
+            "launches_dynamic": dyn_launches.get(name, 0),
+            "launches_service": svc_launches.get(name, 0),
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b, "bound_by": by,
             "library_ms": t["library_ms"]})

@@ -39,11 +39,9 @@ from repro_torch.core.integrity import (CRC_SIDECAR, FORMAT_VERSION,
                                         PREFERRED_ALGO, CorruptIndexError,
                                         block_checksums, resolve_crc)
 from repro_torch.core.traversal import SearchStats
+from repro_torch.core.wal import WAL_NAME
 from repro_torch.device import DeviceLike, resolve_device
 
-#: the write-ahead journal of a dynamic index (`repro.core.wal.WAL_NAME`);
-#: a non-empty one means unflushed mutations that HostIndex cannot serve
-WAL_NAME = "wal.log"
 
 #: meta.json keys a loadable index directory must carry — validated up
 #: front so a truncated/corrupt dir fails with CorruptIndexError, not a
@@ -269,6 +267,10 @@ class HostIndex:
     """Storage-backed index: DiskANN mode (codes resident) or AiSAQ mode
     (only centroids and entry-point codes resident)."""
 
+    #: whether `load` may open a directory with a pending journal: only a
+    #: subclass that recovers it (`core.dynamic.DynamicHostIndex`) does
+    _allows_wal = False
+
     def __init__(self):
         self.meta: dict = {}
         self.layout: Optional[ChunkLayout] = None
@@ -323,15 +325,16 @@ class HostIndex:
         self.path = path
         self.meta = load_meta(path)
         wal_path = os.path.join(path, WAL_NAME)
-        if os.path.exists(wal_path) and os.path.getsize(wal_path):
+        if not cls._allows_wal \
+                and os.path.exists(wal_path) and os.path.getsize(wal_path):
             # a non-empty write-ahead journal means unflushed (possibly
             # half-applied) mutations: the npy/meta files here do NOT
             # describe chunks.bin, and serving the dir read-only would
             # answer from an inconsistent graph
             raise CorruptIndexError(
                 f"{path!r} carries a non-empty write-ahead journal "
-                "(wal.log): unrecovered dynamic mutations, which only the "
-                "dynamic index's loader can reconcile")
+                "(wal.log): unrecovered dynamic mutations. Open it with "
+                "DynamicHostIndex.load to recover, or flush the writer.")
         mode = mode or self.meta["mode"]
         self.mode = mode
         self.layout = ChunkLayout(
@@ -487,9 +490,10 @@ class HostIndex:
         """Scalar DiskANN beam search (paper Algorithm 1) — the semantics
         oracle the batched path must match bit for bit (per adc_dtype, per
         entry mode).  See ``core.traversal.search_ref``."""
-        ids, stats = _traversal.search_ref(self, q, k, L, w,
-                                           adc_dtype=adc_dtype,
-                                           rerank=rerank, entry=entry)
+        with _traversal.SEARCH_GATE.hold():
+            ids, stats = _traversal.search_ref(self, q, k, L, w,
+                                               adc_dtype=adc_dtype,
+                                               rerank=rerank, entry=entry)
         return self._map_out(ids), stats
 
     def search_batch_ref(self, Q: np.ndarray, k: int, L: int, w: int = 4, *,
@@ -497,9 +501,10 @@ class HostIndex:
                          rerank: Optional[int] = None,
                          entry: str = "auto"):
         """Scalar reference loop over the queries."""
-        ids, stats = _traversal.search_batch_ref(self, Q, k, L, w,
-                                                 adc_dtype=adc_dtype,
-                                                 rerank=rerank, entry=entry)
+        with _traversal.SEARCH_GATE.hold():
+            ids, stats = _traversal.search_batch_ref(
+                self, Q, k, L, w, adc_dtype=adc_dtype, rerank=rerank,
+                entry=entry)
         return self._map_out(ids), stats
 
     def search(self, q: np.ndarray, k: int, L: int, w: int = 4, *,
@@ -529,10 +534,11 @@ class HostIndex:
         ``"auto"``) and entry seeding (``entry="nav"|"medoid"|"auto"``).
         Full knob documentation: ``core.traversal.search_batch``.
         Returns (ids (nq, k) in ORIGINAL labels, [SearchStats])."""
-        ids, stats = _traversal.search_batch(self, Q, k, L, w,
-                                             prefetch=prefetch,
-                                             adc_dtype=adc_dtype,
-                                             rerank=rerank,
-                                             pipeline=pipeline, gap=gap,
-                                             entry=entry)
+        with _traversal.SEARCH_GATE.hold():
+            ids, stats = _traversal.search_batch(self, Q, k, L, w,
+                                                 prefetch=prefetch,
+                                                 adc_dtype=adc_dtype,
+                                                 rerank=rerank,
+                                                 pipeline=pipeline, gap=gap,
+                                                 entry=entry)
         return self._map_out(ids), stats

@@ -40,7 +40,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.dynamic import DynamicHostIndex
 from repro_torch.core.index_io import HostIndex
+from repro_torch.core.wal import WAL_NAME
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs.metrics import MetricsRegistry, SearchMetrics
 
@@ -162,7 +164,7 @@ class WarmIndexPool:
         # transient by construction (bounded by in-flight search latency).
         self._retired: List[Tuple[str, _Entry]] = []
         # post-crash journal recoveries performed at open time, by corpus
-        # (the dynamic index's recovery stats; none without it)
+        # (DynamicHostIndex.recovery of each recovered directory)
         self._recoveries: Dict[str, dict] = {}
 
     # -- registration --------------------------------------------------------
@@ -225,14 +227,26 @@ class WarmIndexPool:
         pool's device.
 
         A directory carrying a non-empty write-ahead journal means the
-        previous writer crashed mid-mutation; `HostIndex.load` refuses it
-        with CorruptIndexError. Recovering it (and recording the outcome
-        in `stats()["recoveries"]`) is the dynamic index's work, which the
-        port does not carry yet, so `_recoveries` stays empty."""
+        previous writer crashed mid-mutation; `HostIndex.load` refuses
+        it, so the pool routes through `DynamicHostIndex.load`, which
+        recovers (rollback / roll-forward / torn-tail truncation) before
+        serving. The recovery outcome is remembered per corpus and
+        surfaced in `stats()["recoveries"]` — a post-crash restart shows
+        up in serving telemetry, not just in the worker's local log."""
         preadv = self.preadv_factory(name) if self.preadv_factory else None
-        return HostIndex.load(path, mode=self.mode, shared_centroids=shared,
-                              cache_bytes=self.cache_bytes, preadv=preadv,
-                              device=self.device)
+        kw = dict(mode=self.mode, shared_centroids=shared,
+                  cache_bytes=self.cache_bytes, preadv=preadv,
+                  device=self.device)
+        try:
+            pending = os.path.getsize(os.path.join(path, WAL_NAME)) > 0
+        except OSError:
+            pending = False
+        if pending:
+            idx = DynamicHostIndex.load(path, **kw)
+            with self._lock:
+                self._recoveries[name] = dict(idx.recovery)
+            return idx
+        return HostIndex.load(path, **kw)
 
     def _acquire(self, name: str, share_centroids: bool, do_pin: bool
                  ) -> Tuple[HostIndex, float]:

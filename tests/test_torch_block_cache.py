@@ -2,8 +2,8 @@
 reference's) on the cases of the reference's tests/test_block_cache.py,
 tests/test_faults.py and tests/test_traversal_pipeline.py: LRU eviction,
 readahead gaps and their autotuning, the async prefetcher, CRC
-verification and retries through the real read path (the reference's
-fault injector as the preadv hook), and a port `HostIndex` whose
+verification and retries through the real read path (the port's copy of
+the fault injector as the preadv hook), and a port `HostIndex` whose
 background reads are slow, failing or flaky keeping its oracle's results.
 Every thread a test starts is joined with a timeout."""
 import errno
@@ -15,7 +15,7 @@ import time
 import numpy as np
 import pytest
 
-from repro.core.faults import FaultInjector, FaultPlan
+from repro_torch.core.faults import FaultInjector, FaultPlan
 from repro_torch.core.block_cache import BlockCache, RetryPolicy
 from repro_torch.core.index_io import HostIndex
 from repro_torch.core.integrity import CorruptBlockError

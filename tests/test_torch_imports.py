@@ -52,11 +52,14 @@ def test_import_leaves_jax_and_repro_unloaded():
     assert res.returncode == 0, res.stderr + res.stdout
 
 
-#: the modules of the storage-backed search slice
+#: the modules of the storage-backed search slice and of the write half
 STORAGE_MODULES = ("obs", "obs.metrics", "obs.trace", "core.adc",
                    "core.block_cache", "core.nav", "core.traversal",
                    "core.index_io", "core.index_switch", "serving.pool",
-                   "serving.engine", "launch.serve")
+                   "serving.engine", "launch.serve", "core.wal",
+                   "core.faults", "core.dynamic", "core.shard_math",
+                   "serving", "serving.service", "serving.protocol",
+                   "serving.router", "serving.cluster")
 
 _BLOCKER = """
 import importlib, json, sys
@@ -162,5 +165,17 @@ def test_entry_points_need_a_card_or_device_cpu(small_corpus, built_graph,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--queries", "2", "--corpora",
                     f"a={index_dirs['aisaq']}"])
+    from repro_torch.core.dynamic import DynamicHostIndex
+    from repro_torch.serving.cluster import ShardCluster
+    import tempfile
+    socks = tempfile.mkdtemp(prefix="socks")
+    write_half = [
+        lambda **kw: DynamicHostIndex.load(index_dirs["aisaq"], **kw).close(),
+        lambda **kw: ShardCluster([paths], socket_dir=socks, **kw),
+    ]
+    for call in write_half:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        call(device="cpu")
     assert make_device_search_fn(idx, lay, device="cpu")(q[:2], 5).shape \
         == (2, 5)
