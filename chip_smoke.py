@@ -120,12 +120,41 @@ non-zero):
      `merge_topk` of the shards' single-process searches on the card;
      worker 1 SIGKILLed: a partial answer without shard 1, then full
      coverage again within 60 s, never quarantined; worker start and
-     respawn seconds, router p50/p99, each worker's kernel launches.
+     respawn seconds, router p50/p99, each worker's kernel launches;
+ 17. `[sharded]` (the paper's Fig. 5 device tier): the 10k vectors and
+     PQ of phase 3 split by `vamana.build_sharded` (one-pass Vamana) into
+     4 shards of 2,500 and 2 of 5,000, built side by side in spawned
+     processes and stacked on the card by `stack_shards`; 4 spawned gloo
+     ranks on cuda:0 run `sharded_search_fn` on grid (1, 4) with the
+     queries replicated and (2, 2) with 2 query groups over the 2-shard
+     build, batches 64 and 256, L=256, k=10, f32 and int8: recall@10 (>=
+     0.8), the int8 gap (<= 0.01), ids equal to the same shards searched
+     one after another in this process and merged, top-10 agreement with
+     every rank's plain path (>= 0.99), wall and QPS beside the unsharded
+     10k search, each rank's launches and peak device bytes, each rank's
+     search alone (the ranks taking turns) and the gather of the results,
+     the seconds to start the world;
+ 18. `[sharded1m]`: phase 5's 1M corpus as 4 shards of 250,000 rows, each
+     rank reading its rows from the run's files and packing them over its
+     own random R-regular graph (1.98 GB of chunk rows each); f32, batches
+     64 and 256, k=100: wall and QPS beside phase 5's unsharded search;
+ 19. `[recsys_towers]`: DLRM-rm2, DCN-v2 and Wide&Deep one at a time at
+     their published cardinalities (48.08, 12.02 and 11.74 GB of tables):
+     the CTR forward at serve_p99 (512) and serve_bulk (262,144), p50/p99,
+     finite and bit-equal logits; retrieval_cand (1M candidates of table
+     0, all 1,000 of Wide&Deep's) with PQ at m=16 / 8 / 8 trained on the
+     card, 64 requests through `make_retrieval_fn` (a graph) and eagerly:
+     p50/p99, graph vs eager answers equal, agreement with the plain path
+     (>= 0.99), launches, peak device bytes.
 Each path's launch counts are reset just before it and read just after;
 the kernels line gives the main path's as `launches`, the storage
 path's as `launches_storage`, the dynamic index's (inserts and readers)
-as `launches_dynamic` and the service's as `launches_service`. The run's
-index directories live in one temporary directory, removed at exit.
+as `launches_dynamic`, the service's as `launches_service`, the sharded
+phases' (every rank's timed searches, summed) as `launches_sharded` and
+`launches_sharded1m`, and the towers' graph requests as
+`launches_towers`. Each phase's seconds are printed as it ends
+(`[phase_s]`) and all together before the card line. The run's index
+directories live in one temporary directory, removed at exit.
 Each profiled window whose counts are checked (the device ops of a
 kernel call, the served batch) must show every launch the wrappers
 counted in it (`profile_window`); the other windows (the profiled
@@ -194,12 +223,19 @@ TOL_ADC = (1e-5, 1e-4)   # pq_adc rtol, atol (tests/test_kernels.py)
 # against 1M candidates, m=10), the bulk-scoring shape (8 queries, m=16),
 # a wide LUT (m=128: one f32 query a group, all four int8 queries), n not a
 # multiple of the tile, n below one tile (and n = 1), 20 queries (several
-# groups), m=50, and LUTs too wide for shared memory (f32 at m=256, both
-# dtypes at m=1024: the global-LUT path). Every case runs u8 and i32 codes.
+# groups), m=50, LUTs too wide for shared memory (f32 at m=256, both
+# dtypes at m=1024: the global-LUT path), and the towers' retrieval
+# shapes (one user against 1M codes at m=16 and m=8). Every case runs u8
+# and i32 codes.
 ADC_CASES = ((1, 1_000_000, 10), (8, 1_000_000, 16), (4, 50_000, 128),
              (2, 100_003, 16), (3, 100, 16), (2, 1, 10), (20, 30_000, 16),
-             (4, 20_000, 50), (1, 5_000, 256), (2, 3_000, 1024))
+             (4, 20_000, 50), (1, 5_000, 256), (2, 3_000, 1024),
+             (1, 1_000_000, 16), (1, 1_000_000, 8))
 RETRIEVAL_SHAPE, BULK_SHAPE, WIDE_SHAPE = ADC_CASES[:3]
+# PQ of the towers' retrieval candidates (one user against 1M projected
+# rows of table 0): m so that dsub is 4 or 2 and m % 8 == 0 (DLRM-rm2 D=64,
+# DCN-v2 D=16, Wide&Deep D=32); the last two ADC_CASES are their shapes
+TOWER_PQ_M = {"dlrm": 16, "dcnv2": 8, "widedeep": 8}
 
 
 def log(phase: str, **kv) -> None:
@@ -529,6 +565,11 @@ def lut_rerank_parity():
                KILT_E5_22M.pq_m, "mips"),
               ("short-slab", 160, "float32", 20, 80, "l2"),
               ("sasrec", 50, "float32", 8, RECSYS_PQ_M, "mips"),
+              # the towers' retrieval LUTs (TOWER_PQ_M): dsub 4, 2 and 4
+              ("dlrm-rm2", 64, "float32", 8, TOWER_PQ_M["dlrm"], "mips"),
+              ("dcn-v2", 16, "float32", 8, TOWER_PQ_M["dcnv2"], "mips"),
+              ("wide-deep", 32, "float32", 8, TOWER_PQ_M["widedeep"],
+               "mips"),
               ("odd-f32", 130, "float32", 20, 10, "l2"),
               ("odd-u8", 50, "uint8", 16, 10, "mips"))
     for name, d, dt, R, m, metric in widths:
@@ -1089,8 +1130,9 @@ def graph_device_ms(idx, nq, adc, hops) -> float:
 
 def phase_deployment():
     """1M nodes at SIFT1M widths; recall is not judged (random graph).
-    Returns the index's host arrays (vectors, graph, centroids, codes) and
-    its queries, for the storage phases."""
+    Returns the index's host arrays (vectors, graph, centroids, codes),
+    its queries, for the storage and sharded phases, and each search's
+    times by (adc, batch)."""
     import torch
     from repro_torch.configs import SIFT1M as cfg
     from repro_torch.core.device_index import HOPS_PER_SYNC, \
@@ -1228,7 +1270,7 @@ def phase_deployment():
             profiled_launches=profiled_last(),
             top=json.dumps([[k[:40], round(t, 4), c]
                             for t, k, c in rows[:10]]))
-    return host_arrays, queries
+    return host_arrays, queries, searches
 
 
 def phase_diskann(arrays, aisaq_idx, aisaq_lay, queries, gt, aisaq_ids):
@@ -2551,6 +2593,677 @@ def phase_bulk_adc(nq: int = 8, n: int = 1_000_000, m: int = 16):
     return launches, t, errs
 
 
+# ---------------------------------------------------------------------------
+# the sharded device search (paper Fig. 5) on torch.distributed
+# ---------------------------------------------------------------------------
+
+SHARDED_WORLD = 4
+SHARDED_BATCHES = (64, 256)
+SHARDED_WAIT_S = 300      # longest wait for one job's answers
+# (grid, query axes, shard axes, shards built): 4 ranks owning one shard
+# each with the queries replicated, and 2 query groups x 2 shards
+SHARDED_GRIDS = (((1, 4), (), ("model",), 4),
+                 ((2, 2), ("data",), ("model",), 2))
+
+
+def sharded_rank(rank: int, world: int, store: str, inbox, outbox,
+                 backend: str) -> None:
+    """One rank of the sharded phases, answering jobs from `inbox`
+    (`rank_job`) until None: with "gloo" a process on cuda:0 (NCCL refuses
+    two ranks on one card), with "nccl" one on card `rank`. Its inputs
+    come from files under the run's temporary directory or from the seed;
+    only the (B, k) results cross processes, through the all-gather."""
+    import datetime
+    import traceback
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    dist.init_process_group(
+        backend, store=dist.FileStore(store, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=240))
+    torch.zeros(1, device="cuda")              # the CUDA context
+    outbox.put((rank, {"ready": time.time()}))
+    state = {}
+    try:
+        while True:
+            job = inbox.get(timeout=3600)
+            if job is None:
+                break
+            try:
+                outbox.put((rank, rank_job(rank, job, state)))
+            except BaseException:
+                outbox.put((rank, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+def rank_job(rank: int, job: dict, state: dict) -> dict:
+    """load: the stacked 10k shards from an npz; load1m: this rank's own
+    250k-row shard of the 1M corpus (rows from the npy files, its own
+    random R-regular graph from the seed), packed on the card; search:
+    one sharded search (warm-up and capture first, then the counted,
+    timed call after a barrier), and the same with backend="ref"."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import SIFT1M as cfg
+    from repro_torch.core import sharded_search as ss
+    from repro_torch.core.chunk_layout import layout_for
+    from repro_torch.core.vamana import random_regular_graph, shard_bounds
+    from repro_torch.kernels import _build
+    lay = layout_for(cfg)
+    grids = state.setdefault("grids", {})
+    op = job["op"]
+    if op == "load":
+        z = np.load(job["npz"])
+        state[job["name"]] = ss.ShardedIndexArrays(*(
+            torch.from_numpy(z[f]) for f in ss.ShardedIndexArrays._fields))
+        state["queries"] = z["queries"]
+        return {}
+    if op == "load1m":
+        t0 = time.perf_counter()
+        base = np.load(job["base"], mmap_mode="r")
+        codes = np.load(job["codes"], mmap_mode="r")
+        b = shard_bounds(base.shape[0], job["n_shards"])
+        lo, hi = int(b[rank]), int(b[rank + 1])
+        graph = random_regular_graph(hi - lo, cfg.R, seed=rank,
+                                     device="cuda")
+        state[job["name"]] = ss.stack_shards(
+            [(lo, np.ascontiguousarray(base[lo:hi]), graph)],
+            np.load(job["cents"]), codes, lay, device="cuda")
+        state["queries"] = np.load(job["queries"])
+        torch.cuda.synchronize()
+        return {"load_s": time.perf_counter() - t0, "rows": hi - lo,
+                "table_bytes": state[job["name"]].chunk_words.numel() * 4}
+    shape, qaxes, saxes = job["grid"], job["qaxes"], job["saxes"]
+    if shape not in grids:
+        grids[shape] = ss.ProcessGrid(shape)
+    grid = grids[shape]
+    place_arrays, place_queries = ss.input_sharding(
+        grid, query_axes=qaxes, shard_axes=saxes, device="cuda")
+    key = (job["arrays"], shape, qaxes, saxes)
+    if key not in state:
+        state[key] = place_arrays(state[job["arrays"]])
+    arrays = state[key]
+    q = place_queries(state["queries"][:job["batch"]])
+    torch.cuda.reset_peak_memory_stats()
+    out = {"block": grid.index(qaxes), "blocks": grid.size(qaxes)}
+    for backend in ("auto", "ref"):
+        fkey = key + (job["adc"], backend, job["k"])
+        if fkey not in state:
+            state[fkey] = ss.sharded_search_fn(
+                grid, k=job["k"], L=SEARCH_L, w=cfg.beamwidth,
+                max_hops=cfg.max_hops, layout=lay, metric="l2",
+                backend=backend, query_axes=qaxes, shard_axes=saxes,
+                adc_dtype=job["adc"])
+        fn = state[fkey]
+        fn(arrays, q)                                  # warm-up, capture
+        torch.cuda.synchronize()
+        dist.barrier()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        ids, d = fn(arrays, q)
+        ids, d = ids.cpu().numpy(), d.cpu().numpy()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        if backend == "auto":
+            out.update(ids=ids, d=d, wall_s=wall, launches=launches)
+        else:
+            out.update(plain_ids=ids, plain_wall_s=wall)
+    out.update(rank_breakdown(rank, grid, saxes, arrays, q, job))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def rank_breakdown(rank: int, grid, saxes, arrays, q, job) -> dict:
+    """Where a sharded search's wall goes: this rank's local search alone
+    on the card (the ranks take turns, each between two barriers) and the
+    gather of its (B, k) results with no search beside it."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import SIFT1M as cfg
+    from repro_torch.core import sharded_search as ss
+    from repro_torch.core.chunk_layout import layout_for
+    from repro_torch.core.device_index import beam_search_device, from_numpy
+    idx = from_numpy(arrays.chunk_words[0], arrays.centroids,
+                     arrays.ep_ids[0], arrays.ep_codes[0], device="cuda")
+    kw = dict(k=job["k"], L=SEARCH_L, w=cfg.beamwidth,
+              max_hops=cfg.max_hops, layout=layout_for(cfg), metric="l2",
+              adc_dtype=job["adc"])
+    ids, d, _ = beam_search_device(idx, q, **kw)          # warm-up, capture
+    torch.cuda.synchronize()
+    alone = None
+    for turn in range(grid.world):
+        dist.barrier()
+        if turn == rank:
+            t0 = time.perf_counter()
+            beam_search_device(idx, q, **kw)[0].cpu()
+            alone = time.perf_counter() - t0
+    group, members = grid.group(saxes)
+    dist.barrier()
+    t0 = time.perf_counter()
+    ss._all_gather(ids, group, members).cpu()
+    ss._all_gather(d, group, members).cpu()
+    return {"alone_s": alone, "gather_s": time.perf_counter() - t0}
+
+
+class RankWorld:
+    """`n` spawned `sharded_rank` processes in one world of `backend`
+    (FileStore in the run's temporary directory): gloo ranks share cuda:0,
+    NCCL ranks take a card each. `run(job)` sends the job to every rank
+    and returns their answers by rank; every wait and every join has a
+    time limit, and `close` stops every process."""
+
+    def __init__(self, n: int, root: str, name: str, backend: str = "gloo"):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.n = n
+        self.inboxes = [ctx.Queue() for _ in range(n)]
+        self.outbox = ctx.Queue()
+        store = os.path.join(root, f"store_{name}")
+        t0 = time.time()
+        self.procs = [ctx.Process(target=sharded_rank, daemon=True,
+                                  args=(r, n, store, self.inboxes[r],
+                                        self.outbox, backend))
+                      for r in range(n)]
+        for p in self.procs:
+            p.start()
+        try:
+            ready = self._collect("start", 240)
+        except BaseException:
+            self.close()
+            raise
+        self.start_s = max(v["ready"] for v in ready.values()) - t0
+
+    def _collect(self, what: str, timeout: float) -> dict:
+        import queue
+        got, t_end = {}, time.time() + timeout
+        while len(got) < self.n:
+            try:
+                rank, ans = self.outbox.get(
+                    timeout=max(1.0, t_end - time.time()))
+            except queue.Empty:
+                raise AssertionError(f"sharded {what}: only ranks "
+                                     f"{sorted(got)} answered") from None
+            require(not isinstance(ans, str), f"rank {rank}, {what}: {ans}")
+            got[rank] = ans
+        return got
+
+    def run(self, job: dict, timeout: float = SHARDED_WAIT_S) -> dict:
+        for box in self.inboxes:
+            box.put(job)
+        return self._collect(job["op"], timeout)
+
+    def close(self) -> None:
+        for box in self.inboxes:
+            box.put(None)
+        for p in self.procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+
+
+def gathered(answers: dict, key: str = "ids") -> np.ndarray:
+    """The (B, k) answer of a sharded search: each query block once, in
+    block order, after checking that every rank of a block agrees."""
+    blocks = {}
+    for a in answers.values():
+        if a["block"] in blocks:
+            require(np.array_equal(blocks[a["block"]], a[key]),
+                    f"ranks of block {a['block']} disagree on {key}")
+        blocks[a["block"]] = a[key]
+    return np.concatenate([blocks[b] for b in sorted(blocks)])
+
+
+def shard_indexes(arrays):
+    """A DeviceIndex of each stacked shard, on the card."""
+    from repro_torch.core.device_index import from_numpy
+    return [(from_numpy(arrays.chunk_words[s], arrays.centroids,
+                        arrays.ep_ids[s], arrays.ep_codes[s], device="cuda"),
+             arrays.offsets[s]) for s in range(arrays.chunk_words.shape[0])]
+
+
+def one_process_merge(indexes, q, k: int, adc: str):
+    """The same shards searched one after another in this process on the
+    card (their ids made global), then merged by the stable-sort merge."""
+    import torch
+    from repro_torch.configs import SIFT1M as cfg
+    from repro_torch.core.chunk_layout import layout_for
+    from repro_torch.core.device_index import beam_search_device
+    from repro_torch.core.sharded_search import merge_shards
+    all_ids, all_d = [], []
+    for idx, offset in indexes:
+        ids, d, _ = beam_search_device(
+            idx, q, k=k, L=SEARCH_L, w=cfg.beamwidth, max_hops=cfg.max_hops,
+            layout=layout_for(cfg), metric="l2", adc_dtype=adc)
+        valid = ids >= 0
+        all_ids.append(torch.where(valid, ids + offset, -1).to(torch.int32))
+        all_d.append(torch.where(valid, d, torch.inf))
+    ids, _ = merge_shards(torch.stack(all_ids), torch.stack(all_d), k)
+    return ids.cpu().numpy()
+
+
+def unsharded_search_ms(idx, lay, queries, k: int, adc: str = "f32") -> dict:
+    """Wall ms of one warm beam_search_device call at each sharded batch
+    (the graph captured by a first call)."""
+    import torch
+    from repro_torch.configs import SIFT1M as cfg
+    from repro_torch.core.device_index import beam_search_device
+    out = {}
+    for nq in SHARDED_BATCHES:
+        q = torch.from_numpy(queries[:nq]).cuda()
+        kw = dict(k=k, L=SEARCH_L, w=cfg.beamwidth, max_hops=cfg.max_hops,
+                  layout=lay, metric="l2", adc_dtype=adc)
+        beam_search_device(idx, q, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        beam_search_device(idx, q, **kw)[0].cpu()
+        out[nq] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def add_launches(total: dict, answers: dict) -> None:
+    """Add every rank's counted launches into `total`."""
+    for a in answers.values():
+        for name, n in a["launches"].items():
+            total[name] = total.get(name, 0) + n
+
+
+def compact(obj) -> str:
+    return json.dumps(obj, separators=(",", ":"))
+
+
+def phase_sharded(arrays, queries, gt, root):
+    """[sharded]: the main path's 10k vectors and PQ codebooks, split by
+    `build_sharded` (the main path's one-pass Vamana, L=64) into 4 shards
+    of 2,500 and into 2 of 5,000, the builds side by side in spawned
+    processes; `stack_shards` on the card; 4 gloo ranks on cuda:0 search
+    them on grid (1, 4) (queries replicated) and (2, 2) (2 query groups x
+    2 shards), batches 64 and 256, L=256, k=10, f32 and int8. Checks:
+    recall@10 >= 0.8, the int8 gap <= 0.01, ids equal to the one-process
+    merge, top-10 agreement with the plain path >= 0.99. Returns the
+    launches of every rank's timed searches, summed."""
+    import threading
+    import torch
+    from repro_torch.configs import SIFT1M as cfg
+    from repro_torch.core.chunk_layout import layout_for
+    from repro_torch.core.device_index import from_arrays
+    from repro_torch.core.pq import recall_at
+    from repro_torch.core.sharded_search import stack_shards
+    from repro_torch.core.vamana import build_sharded
+    base, graph, cents, codes = arrays
+    kw = dict(R=cfg.R, L=64, alpha=cfg.alpha, two_pass=False, seed=0)
+    builds, t0 = {}, time.perf_counter()
+
+    def build(n_shards):
+        builds[n_shards] = build_sharded(base, n_shards, processes=n_shards,
+                                         **kw)
+    threads = [threading.Thread(target=build, args=(s,), daemon=True)
+               for s in (4, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    build_s = time.perf_counter() - t0
+    require(set(builds) == {4, 2}, "a sharded build did not finish")
+    lay = layout_for(cfg)
+    stacked, t0 = {}, time.perf_counter()
+    for s, shards in builds.items():
+        stacked[s] = stack_shards(shards, cents, codes, lay, device="cuda")
+        np.savez(os.path.join(root, f"sharded{s}.npz"), queries=queries,
+                 **{f: getattr(stacked[s], f).cpu().numpy()
+                    for f in stacked[s]._fields})
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    log("sharded", n=len(base), builds="4x2500,2x5000",
+        build_s=f"{build_s:.1f}", stack_s=f"{stack_s:.2f}",
+        table_bytes=compact({s: a.chunk_words.numel() * 4
+                             for s, a in stacked.items()}))
+    idx, ulay = from_arrays(base, graph, cents, codes, device="cuda")
+    unsharded = unsharded_search_ms(idx, ulay, queries, 10)
+    del idx
+    indexes = {s: shard_indexes(a) for s, a in stacked.items()}
+    one = {(s, adc, nq): one_process_merge(
+        indexes[s], torch.from_numpy(queries[:nq]).cuda(), 10, adc)
+        for s in (4, 2) for adc in ("f32", "int8")
+        for nq in SHARDED_BATCHES}
+    del stacked, indexes
+    torch.cuda.empty_cache()
+    world = RankWorld(SHARDED_WORLD, root, "sharded")
+    launches, rec = {}, {}
+    try:
+        for s in (4, 2):
+            world.run({"op": "load", "name": f"s{s}",
+                       "npz": os.path.join(root, f"sharded{s}.npz")})
+        for shape, qaxes, saxes, s in SHARDED_GRIDS:
+            for nq in SHARDED_BATCHES:
+                for adc in ("f32", "int8"):
+                    ans = world.run({"op": "search", "arrays": f"s{s}",
+                                     "grid": shape, "qaxes": qaxes,
+                                     "saxes": saxes, "batch": nq,
+                                     "adc": adc, "k": 10})
+                    ids = gathered(ans)
+                    plain = gathered(ans, "plain_ids")
+                    rec[shape, nq, adc] = recall_at(ids, gt[:nq], 10)
+                    agree = float(np.mean([len(set(a) & set(b)) / 10.0
+                                           for a, b in zip(ids, plain)]))
+                    same = bool(np.array_equal(ids, one[s, adc, nq]))
+                    wall = max(a["wall_s"] for a in ans.values())
+                    plain_wall = max(a["plain_wall_s"] for a in ans.values())
+                    alone = [a["alone_s"] * 1e3 for _, a in sorted(ans.items())]
+                    per_rank = {r: {k: a["launches"].get(k, 0) for k in
+                                    ("fused_hop_f32", "fused_hop_int8",
+                                     "pq_lut")}
+                                for r, a in sorted(ans.items())}
+                    add_launches(launches, ans)
+                    log("sharded", grid="x".join(map(str, shape)),
+                        query_axes="+".join(qaxes) or "replicated",
+                        shards=s, batch=nq, adc=adc,
+                        recall10=rec[shape, nq, adc],
+                        equal_to_one_process_merge=same,
+                        plain_agreement=agree,
+                        wall_ms=f"{wall * 1e3:.3f}", qps=f"{nq / wall:.1f}",
+                        unsharded_f32_ms=f"{unsharded[nq]:.3f}",
+                        unsharded_f32_qps=f"{nq / unsharded[nq] * 1e3:.1f}",
+                        plain_wall_ms=f"{plain_wall * 1e3:.3f}",
+                        rank_alone_ms=compact([round(t, 3) for t in alone]),
+                        alone_sum_ms=f"{sum(alone):.3f}",
+                        gather_ms=f"{max(a['gather_s'] for a in ans.values()) * 1e3:.3f}",
+                        rank_launches=compact(per_rank),
+                        rank_peak_bytes=compact(
+                            {r: a["peak_bytes"]
+                             for r, a in sorted(ans.items())}))
+                    require(same, f"grid {shape} {adc} batch {nq}: ids "
+                            "differ from the one-process merge")
+                    require(agree >= 0.99, f"grid {shape} {adc} batch {nq}:"
+                            f" agreement with the plain path {agree}")
+                    kernel = ("fused_hop_f32" if adc == "f32"
+                              else "fused_hop_int8")
+                    require(all(a["launches"].get(kernel, 0) > 0
+                                and a["launches"].get("pq_lut", 0) > 0
+                                for a in ans.values()),
+                            f"a rank launched no {kernel} or pq_lut: "
+                            f"{per_rank}")
+        for key, r in rec.items():
+            require(r >= 0.8, f"sharded recall@10 {r} < 0.8 at {key}")
+            if key[2] == "f32":
+                gap = abs(r - rec[key[0], key[1], "int8"])
+                require(gap <= 0.01, f"sharded int8 gap {gap} at {key}")
+        log("sharded", world=SHARDED_WORLD, backend="gloo",
+            device="cuda:0 shared", world_start_s=f"{world.start_s:.2f}",
+            launches=compact(launches))
+    finally:
+        world.close()
+    return launches
+
+
+def save_1m(arrays_1m, queries_1m, root) -> dict:
+    """The 1M corpus's rows, codes and centroids and its queries, as npy
+    files the sharded ranks read their rows from."""
+    base, _, cents, codes = arrays_1m
+    paths = {k: os.path.join(root, f"one_m_{k}.npy")
+             for k in ("base", "codes", "cents", "queries")}
+    for k, a in (("base", base), ("codes", codes), ("cents", cents),
+                 ("queries", queries_1m)):
+        np.save(paths[k], np.asarray(a))
+    return paths
+
+
+def phase_sharded1m(paths, searches_1m, root):
+    """[sharded1m]: the 1M corpus of the deployment phase as 4 shards of
+    250,000 rows (1.98 GB of chunk rows each), one a rank on cuda:0, each
+    over its own random R-regular graph (recall is not judged, as at 1M);
+    grid (1, 4), queries replicated, f32, k=100 (the deployment search's
+    k), batches 64 and 256: wall and QPS beside the unsharded search of
+    the same run. Returns the timed searches' launches, summed."""
+    world = RankWorld(SHARDED_WORLD, root, "sharded1m")
+    launches = {}
+    try:
+        loaded = world.run({"op": "load1m", "name": "s1m", "n_shards": 4,
+                            **paths}, timeout=600)
+        log("sharded1m", world=SHARDED_WORLD,
+            world_start_s=f"{world.start_s:.2f}",
+            rank_rows=compact({r: a["rows"] for r, a in loaded.items()}),
+            rank_table_bytes=compact({r: a["table_bytes"]
+                                      for r, a in loaded.items()}),
+            load_s=f"{max(a['load_s'] for a in loaded.values()):.2f}")
+        for nq in SHARDED_BATCHES:
+            ans = world.run({"op": "search", "arrays": "s1m",
+                             "grid": (1, 4), "qaxes": (),
+                             "saxes": ("model",), "batch": nq, "adc": "f32",
+                             "k": RERANK}, timeout=600)
+            ids = gathered(ans)
+            plain = gathered(ans, "plain_ids")
+            agree = float(np.mean([len(set(a) & set(b)) / RERANK
+                                   for a, b in zip(ids, plain)]))
+            wall = max(a["wall_s"] for a in ans.values())
+            unsharded = searches_1m["f32", nq]["wall_ms"]
+            add_launches(launches, ans)
+            alone = [a["alone_s"] * 1e3 for _, a in sorted(ans.items())]
+            log("sharded1m", grid="1x4", shards=4, batch=nq, adc="f32",
+                k=RERANK, wall_ms=f"{wall * 1e3:.3f}",
+                rank_alone_ms=compact([round(t, 3) for t in alone]),
+                alone_sum_ms=f"{sum(alone):.3f}",
+                gather_ms=f"{max(a['gather_s'] for a in ans.values()) * 1e3:.3f}",
+                qps=f"{nq / wall:.1f}", unsharded_ms=f"{unsharded:.3f}",
+                unsharded_qps=f"{nq / unsharded * 1e3:.1f}",
+                plain_agreement=agree,
+                rank_launches=compact({r: a["launches"]
+                                       for r, a in sorted(ans.items())}),
+                rank_peak_bytes=compact({r: a["peak_bytes"]
+                                         for r, a in sorted(ans.items())}))
+            require(ids.shape == (nq, RERANK) and (ids >= 0).all()
+                    and (ids < 1_000_000).all(), "sharded 1M ids")
+            require(agree >= 0.99, f"sharded 1M agreement {agree}")
+            require(all(a["launches"].get("fused_hop_f32", 0) > 0
+                        for a in ans.values()),
+                    "a 1M rank launched no fused_hop_f32")
+    finally:
+        world.close()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the recommender towers at their published cardinalities
+# ---------------------------------------------------------------------------
+
+
+def tower_batch(cfg, n: int, seed: int, device):
+    """n rows of CTR inputs drawn on `device`: dense N(0, 1) features and
+    each field's ids uniform over its published vocabulary."""
+    import torch
+    g = torch.Generator(device).manual_seed(seed)
+    sparse = torch.stack([torch.randint(0, v, (n, cfg.multi_hot),
+                                        generator=g, device=device)
+                          for v in cfg.vocab_sizes], dim=1)
+    out = {"sparse": sparse}
+    if cfg.n_dense:
+        out["dense"] = torch.randn((n, cfg.n_dense), generator=g,
+                                   device=device)
+    return out
+
+
+def ctr_bytes_ops(cfg, n: int):
+    """Bytes (each looked-up embedding row and wide weight read once, the
+    dense features read, the logits written) and operations (two a
+    multiply-add of every matrix product, DLRM's pairwise dots included)
+    of n rows of the CTR forward."""
+    D, F, hot = cfg.embed_dim, cfg.n_sparse, cfg.multi_hot
+
+    def mlp(dims):
+        return sum(a * b for a, b in zip(dims, dims[1:]))
+    nbytes = n * 4 * (F * hot * D + cfg.n_dense + 1)
+    if cfg.kind == "dlrm":
+        f = F + 1
+        macs = (mlp((cfg.n_dense,) + cfg.bot_mlp) + f * f * D
+                + mlp((f * (f - 1) // 2 + cfg.bot_mlp[-1],) + cfg.top_mlp))
+    elif cfg.kind == "dcnv2":
+        d0 = cfg.n_dense + F * D
+        macs = cfg.n_cross_layers * d0 * d0 + mlp((d0,) + cfg.mlp + (1,))
+    else:
+        nbytes += n * 4 * F * hot                      # the wide weights
+        macs = mlp((F * D,) + cfg.mlp + (1,))
+    return nbytes, 2 * macs * n
+
+
+def ctr_times(p, cfg, batch, reps: int):
+    """Latencies (s) of `reps` CTR forwards after a first call, and the
+    logits of the first and the last."""
+    import torch
+    from repro_torch.models import recsys
+    first = recsys.rec_forward(p, batch, cfg)
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        last = recsys.rec_forward(p, batch, cfg)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    return np.array(lat), first, last
+
+
+def phase_recsys_towers(n_requests: int = 64, k: int = 100,
+                        rerank_mult: int = 4):
+    """[recsys_towers]: DLRM-rm2, DCN-v2 and Wide&Deep, one at a time, at
+    their published cardinalities on the card (random parameters from a
+    seeded generator): the CTR forward at serve_p99 (512) and serve_bulk
+    (262,144) — p50/p99, finite logits, two calls bit-equal — and
+    retrieval_cand: one user against the first rows of table 0, projected
+    (1M, or all of table 0 where it holds fewer: Wide&Deep's has 1,000),
+    PQ trained and encoded on the card at TOWER_PQ_M, n_requests requests
+    through make_retrieval_fn (one graph a request) and the eager
+    retrieval_topk_pq: p50/p99, graph vs eager answers equal, kernel vs
+    plain top-k agreement >= 0.99. Returns the graph requests' launches,
+    summed over the towers."""
+    import torch
+    from repro_torch.configs import (DCN_V2, DLRM_RM2, RETRIEVAL_CAND,
+                                     SERVE_BULK, SERVE_P99, WIDE_DEEP)
+    from repro_torch.core.pq import encode, train_codebooks
+    from repro_torch.kernels import _build, ops
+    from repro_torch.models import recsys
+    dev = torch.device("cuda")
+    total = {}
+    for cfg in (DLRM_RM2, DCN_V2, WIDE_DEEP):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        p = recsys.init_recsys(cfg, generator=torch.Generator(dev)
+                               .manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() - base_bytes
+        rows = sum(recsys.padded_vocab(v) for v in cfg.vocab_sizes)
+        table_bytes = sum(t.numel() * 4 for t in p.tables) + sum(
+            t.numel() * 4 for t in getattr(p, "wide", []))
+        require(all(t.shape[0] == recsys.padded_vocab(v)
+                    for t, v in zip(p.tables, cfg.vocab_sizes)),
+                f"{cfg.name}: a table is not at its published size")
+        ctr = {}
+        for shape, reps in ((SERVE_P99, 50), (SERVE_BULK, 10)):
+            batch = tower_batch(cfg, shape.batch, 1, dev)
+            lat, a, b = ctr_times(p, cfg, batch, reps)
+            require(a.shape == (shape.batch,)
+                    and bool(torch.isfinite(a).all()),
+                    f"{cfg.name} {shape.name}: logits not finite")
+            require(torch.equal(a, b), f"{cfg.name} {shape.name}: two "
+                    "calls gave different logits")
+            ctr[shape.name] = percentiles_ms(lat)
+            b_ms, by = bound_ms(*ctr_bytes_ops(cfg, shape.batch))
+            ctr[shape.name].update(bound_ms=f"{b_ms:.4f}", bound_by=by)
+            del batch, a, b
+        n = min(RETRIEVAL_CAND.n_candidates, cfg.vocab_sizes[0])
+        m = TOWER_PQ_M[cfg.kind]
+        t0 = time.perf_counter()
+        cand = recsys.item_vectors(p, torch.arange(n, device=dev))
+        init = np.random.default_rng(0).choice(n, 256, replace=False)
+        cents = train_codebooks(cand, m=m, init_idx=init, ks=256,
+                                iters=RECSYS_PQ_ITERS, device=dev)
+        codes = encode(cents, cand, device=dev)
+        torch.cuda.synchronize()
+        pq_s = time.perf_counter() - t0
+        rng = np.random.default_rng(2)
+        reqs = []
+        for _ in range(n_requests):
+            r = {"sparse": np.stack([rng.integers(0, v, (1, cfg.multi_hot))
+                                     for v in cfg.vocab_sizes], axis=1)}
+            if cfg.n_dense:
+                r["dense"] = rng.normal(size=(1, cfg.n_dense)).astype(
+                    np.float32)
+            reqs.append(r)
+        graphed = recsys.make_retrieval_fn(p, cfg, codes, cents, k=k,
+                                           rerank_mult=rerank_mult)
+
+        def eager(r, backend="auto"):
+            return recsys.retrieval_topk_pq(p, r, cfg, codes, cents, k=k,
+                                            rerank_mult=rerank_mult,
+                                            backend=backend)
+
+        def requests(fn):
+            lat, ids = [], []
+            for r in reqs:
+                t0 = time.perf_counter()
+                i = fn(r)[0].cpu().numpy()
+                lat.append(time.perf_counter() - t0)
+                ids.append(i[0])
+            return np.array(lat), np.stack(ids)
+
+        t0 = time.perf_counter()
+        graphed(reqs[0])                       # warm-up and capture
+        capture_s = time.perf_counter() - t0
+        eager(reqs[0])
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        lat, ids = requests(graphed)
+        launches = dict(_build.launch_counts)
+        eager_lat, eager_ids = requests(eager)
+        _, plain_ids = requests(lambda r: eager(r, "ref"))
+        graph_agree = float(np.mean([len(set(a) & set(b)) / k
+                                     for a, b in zip(ids, eager_ids)]))
+        agree = float(np.mean([len(set(a) & set(b)) / k
+                               for a, b in zip(ids, plain_ids)]))
+        users = torch.cat([recsys.user_tower(p, r, cfg) for r in reqs[:8]])
+        lut = ops.build_lut(users, cents, metric="mips")
+        err_lut = close_err(lut, ops.build_lut(users, cents, metric="mips",
+                                               backend="ref"))
+        err_adc = max(adc_err(ops.adc(l[None], codes),
+                              ops.adc(l[None], codes, backend="ref"))
+                      for l in lut)
+        for name, c in launches.items():
+            total[name] = total.get(name, 0) + c
+        log("recsys_towers", model=cfg.name, kind=cfg.kind,
+            embed_dim=cfg.embed_dim, fields=cfg.n_sparse,
+            multi_hot=cfg.multi_hot, table_rows=rows,
+            table_bytes=table_bytes, init_s=f"{init_s:.2f}",
+            init_peak_bytes=init_peak,
+            **{f"{shape}_{key}": v for shape, c in ctr.items()
+               for key, v in c.items()},
+            logits_finite=True, logits_bit_equal=True)
+        log("recsys_towers", model=cfg.name, shape="retrieval_cand",
+            candidates=n, pq_m=m, dsub=cfg.embed_dim // m,
+            pq_s=f"{pq_s:.2f}", requests=n_requests,
+            capture_s=f"{capture_s:.3f}", **percentiles_ms(lat),
+            eager_p50_ms=f"{np.percentile(eager_lat * 1e3, 50):.3f}",
+            eager_p99_ms=f"{np.percentile(eager_lat * 1e3, 99):.3f}",
+            graph_eager_agreement=graph_agree, plain_agreement=agree,
+            pq_lut_err=err_lut, pq_adc_err=err_adc,
+            launches=compact(launches),
+            peak_device_bytes=torch.cuda.max_memory_allocated()
+            - base_bytes)
+        require(launches.get("pq_lut") == n_requests
+                and launches.get("pq_adc") == n_requests,
+                f"{cfg.name}: expected {n_requests} pq_lut and pq_adc "
+                f"launches: {launches}")
+        require(graph_agree == 1.0 and np.array_equal(ids, eager_ids),
+                f"{cfg.name}: graph and eager answers differ")
+        require(agree >= 0.99, f"{cfg.name}: top-{k} agreement with the "
+                f"plain path {agree}")
+        del p, cand, cents, codes, graphed, users, lut
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     faulthandler.enable()          # a crash in native code prints its stack
     # PyTorch tears CUPTI down after each profiler window and sets it up
@@ -2572,39 +3285,67 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# seconds of each phase, in order (`timed`)
+PHASE_S = {}
+
+
+def timed(name: str, fn, *args):
+    """fn(*args), its seconds logged as a `[phase_s]` line and kept in
+    PHASE_S."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_S[name] = round(time.perf_counter() - t0, 2)
+        log("phase_s", of=name, s=PHASE_S[name])
+
+
 def run_phases(root: str) -> int:
     """Every phase in order, the run's index directories under `root`."""
     import torch
-    phase_env()
-    errs = phase_parity()
-    idx, lay, queries, gt, arrays = build_index_10k()
+    timed("env", phase_env)
+    errs = timed("parity", phase_parity)
+    idx, lay, queries, gt, arrays = timed("build10k", build_index_10k)
     # the first profiler window: after the build's host-only minutes (see
     # the module docstring)
-    adc_ops = adc_device_ops()
-    launches, served = phase_main_path(idx, lay, queries, gt)
-    times = kernel_times(idx, lay, queries)
-    phase_search_graph(idx, lay, queries)
-    phase_write_load(idx, lay, queries, arrays, root)
-    phase_diskann(arrays, idx, lay, queries, gt, served)
+    adc_ops = timed("adc_ops", adc_device_ops)
+    launches, served = timed("main_path", phase_main_path, idx, lay,
+                             queries, gt)
+    times = timed("kernel_times", kernel_times, idx, lay, queries)
+    timed("search_graph", phase_search_graph, idx, lay, queries)
+    timed("write_load", phase_write_load, idx, lay, queries, arrays, root)
+    timed("diskann", phase_diskann, arrays, idx, lay, queries, gt, served)
     del idx
     torch.cuda.empty_cache()
-    arrays_1m, queries_1m = phase_deployment()
+    arrays_1m, queries_1m, searches_1m = timed("deployment",
+                                               phase_deployment)
+    paths_1m = save_1m(arrays_1m, queries_1m, root)
     torch.cuda.empty_cache()
-    rec_launches, adc, rec_errs = phase_recsys()
+    rec_launches, adc, rec_errs = timed("recsys", phase_recsys)
     torch.cuda.empty_cache()
-    bulk_launches, bulk, bulk_errs = phase_bulk_adc()
+    bulk_launches, bulk, bulk_errs = timed("bulk_adc", phase_bulk_adc)
     torch.cuda.empty_cache()
-    phase_adc_report(adc, bulk, adc_ops)
-    storage_launches, peak_10k = phase_storage(arrays, queries, gt, root)
-    path_1m = phase_storage1m(arrays_1m, queries_1m, root, peak_10k)
+    timed("adc_report", phase_adc_report, adc, bulk, adc_ops)
+    storage_launches, peak_10k = timed("storage", phase_storage, arrays,
+                                       queries, gt, root)
+    path_1m = timed("storage1m", phase_storage1m, arrays_1m, queries_1m,
+                    root, peak_10k)
     del arrays_1m
-    phase_switch(root, path_1m)
+    timed("switch", phase_switch, root, path_1m)
     shutil.rmtree(path_1m)
-    phase_serve_launch()
-    dyn_launches = phase_dynamic(arrays, queries, root)
-    phase_crash_drill(arrays, root)
-    svc_launches = phase_service(queries, root)
-    phase_cluster(arrays, queries, root)
+    timed("serve_launch", phase_serve_launch)
+    dyn_launches = timed("dynamic", phase_dynamic, arrays, queries, root)
+    timed("crash_drill", phase_crash_drill, arrays, root)
+    svc_launches = timed("service", phase_service, queries, root)
+    timed("cluster", phase_cluster, arrays, queries, root)
+    torch.cuda.empty_cache()
+    sharded_launches = timed("sharded", phase_sharded, arrays, queries, gt,
+                             root)
+    sharded1m_launches = timed("sharded1m", phase_sharded1m, paths_1m,
+                               searches_1m, root)
+    tower_launches = timed("recsys_towers", phase_recsys_towers)
+    log("phase_s", total=round(sum(PHASE_S.values()), 2),
+        by_phase=compact(PHASE_S))
     log("profiler", windows=len(PROFILED_LAUNCHES),
         port_graphs_kept=len(KEPT_GRAPHS),
         complete=sum(s == n for s, n, _, _ in PROFILED_LAUNCHES),
@@ -2635,6 +3376,9 @@ def run_phases(root: str) -> int:
             "launches_storage": storage_launches.get(name, 0),
             "launches_dynamic": dyn_launches.get(name, 0),
             "launches_service": svc_launches.get(name, 0),
+            "launches_sharded": sharded_launches.get(name, 0),
+            "launches_sharded1m": sharded1m_launches.get(name, 0),
+            "launches_towers": tower_launches.get(name, 0),
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b, "bound_by": by,
             "library_ms": t["library_ms"]})

@@ -1,12 +1,14 @@
 """Index configurations of the paper's Table 1 (copy of
-`repro.configs.base.IndexConfig` and `repro.configs.aisaq_indices`) and the
-recommender configuration of the retrieval slice (`RecsysConfig`,
-`SASREC`, `RETRIEVAL_CAND`)."""
+`repro.configs.base.IndexConfig` and `repro.configs.aisaq_indices`), the
+recommender configurations (`RecsysConfig`; `SASREC`, `DLRM_RM2`,
+`DCN_V2`, `WIDE_DEEP`; the `REC_SHAPES` cells) and the `--arch` registry
+(`get_arch`, `list_archs`: copies of `repro.configs.registry`'s for the
+families the port runs)."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 
 @dataclass(frozen=True)
@@ -114,9 +116,20 @@ class ShapeConfig:
     n_candidates: int = 0
 
 
-# one user against the whole 1M-item catalogue: the paper's retrieval regime
+# the recommender cells: a training batch, a p99-latency serving batch, a
+# bulk-scoring batch, and one user against the whole 1M-item catalogue
+# (the paper's retrieval regime)
+TRAIN_BATCH = ShapeConfig("train_batch", "rec_train", batch=65536)
+SERVE_P99 = ShapeConfig("serve_p99", "rec_serve", batch=512)
+SERVE_BULK = ShapeConfig("serve_bulk", "rec_serve", batch=262144)
 RETRIEVAL_CAND = ShapeConfig("retrieval_cand", "rec_retrieval", batch=1,
                              n_candidates=1_000_000)
+REC_SHAPES = (TRAIN_BATCH, SERVE_P99, SERVE_BULK, RETRIEVAL_CAND)
+
+ANN_SHAPES = (
+    ShapeConfig("serve_q32", "ann_search", batch=32),
+    ShapeConfig("serve_q1k", "ann_search", batch=1024),
+)
 
 # sasrec [arXiv:1808.09781; paper] — self-attentive sequential recommender.
 # Item vocabulary is set to 1M so retrieval_cand (1 query x 1e6 candidates)
@@ -131,3 +144,136 @@ SASREC = RecsysConfig(
     n_heads=1,
     interaction="self-attn-seq",
 )
+
+# dlrm-rm2 [arXiv:1906.00091; paper]: the MLPerf / Criteo-Terabyte
+# cardinalities of the 26 sparse fields. They sum to 187,767,399 rows, and
+# to 187,801,600 once each table is padded to a multiple of 2048 as
+# `models.recsys.padded_vocab` pads it: 48.08 GB of float32 at D=64, which
+# fits on one 80 GB card. (The reference's docstring says "~882M total
+# rows -> ~226 GB"; the tuple below, which both packages share, holds
+# 187.8M.)
+CRITEO_TB_VOCABS = (
+    39884406, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63, 38532951,
+    2953546, 403346, 10, 2208, 11938, 155, 4, 976, 14, 39979771,
+    25641295, 39664984, 585935, 12972, 108, 36,
+)
+
+DLRM_RM2 = RecsysConfig(
+    name="dlrm-rm2",
+    kind="dlrm",
+    embed_dim=64,
+    vocab_sizes=CRITEO_TB_VOCABS,
+    n_dense=13,
+    bot_mlp=(512, 256, 64),
+    top_mlp=(512, 512, 256, 1),
+    interaction="dot",
+)
+
+# dcn-v2 [arXiv:2008.13535; paper]: 3 cross layers + deep MLP over the same
+# 26 Criteo tables at D=16 (12.02 GB padded)
+DCN_V2 = RecsysConfig(
+    name="dcn-v2",
+    kind="dcnv2",
+    embed_dim=16,
+    vocab_sizes=CRITEO_TB_VOCABS,
+    n_dense=13,
+    mlp=(1024, 1024, 512),
+    n_cross_layers=3,
+    interaction="cross",
+)
+
+# wide-deep [arXiv:1606.07792; paper]: 40 fields spanning 1e3..1e7 rows
+# (deterministic synthetic cardinalities; 88,888,000 rows, 88,915,968
+# padded: 11.38 GB of deep tables at D=32 plus 0.36 GB of wide ones)
+WD_VOCABS = tuple(10 ** (3 + (i % 5)) for i in range(40))
+
+WIDE_DEEP = RecsysConfig(
+    name="wide-deep",
+    kind="widedeep",
+    embed_dim=32,
+    vocab_sizes=WD_VOCABS,
+    n_dense=0,
+    mlp=(1024, 512, 256),
+    multi_hot=2,                    # wide&deep uses multi-hot cross features
+    interaction="concat",
+)
+
+
+# ---------------------------------------------------------------------------
+# the --arch registry (copy of `repro.configs.base.ArchConfig` and
+# `repro.configs.registry`)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    arch_id: str
+    family: str                     # lm | gnn | recsys | ann
+    model: object
+    shapes: Tuple[ShapeConfig, ...]
+    skip_shapes: Tuple[str, ...] = ()
+    skip_reason: str = ""
+    source: str = ""
+
+    def shape(self, name: str) -> ShapeConfig:
+        for s in self.shapes:
+            if s.name == name:
+                return s
+        raise KeyError(f"{self.arch_id} has no shape {name!r}")
+
+    def active_shapes(self) -> Tuple[ShapeConfig, ...]:
+        return tuple(s for s in self.shapes if s.name not in self.skip_shapes)
+
+
+def _rec(arch_id: str, model: RecsysConfig, source: str) -> ArchConfig:
+    return ArchConfig(arch_id=arch_id, family="recsys", model=model,
+                      shapes=REC_SHAPES, source=source)
+
+
+def _ann(arch_id: str, model: IndexConfig) -> ArchConfig:
+    return ArchConfig(arch_id=arch_id, family="ann", model=model,
+                      shapes=ANN_SHAPES, source="paper Table 1")
+
+
+# the LM and GNN architectures of the reference's registry: their models
+# and training scaffolding are not ported yet
+_NOT_PORTED_ARCHS = ("qwen3-1.7b", "h2o-danube-1.8b", "qwen2-1.5b",
+                     "qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
+                     "graphsage-reddit")
+
+_REGISTRY: Dict[str, ArchConfig] = {
+    "dlrm-rm2": _rec("dlrm-rm2", DLRM_RM2, "arXiv:1906.00091; paper"),
+    "sasrec": _rec("sasrec", SASREC, "arXiv:1808.09781; paper"),
+    "dcn-v2": _rec("dcn-v2", DCN_V2, "arXiv:2008.13535; paper"),
+    "wide-deep": _rec("wide-deep", WIDE_DEEP, "arXiv:1606.07792; paper"),
+    "aisaq-sift1m": _ann("aisaq-sift1m", SIFT1M),
+    "aisaq-sift1b": _ann("aisaq-sift1b", SIFT1B),
+    "aisaq-kilt-e5": _ann("aisaq-kilt-e5", KILT_E5_22M),
+}
+
+# the reference's order: assigned architectures first, then the extras
+_ORDER = ("qwen3-1.7b", "h2o-danube-1.8b", "qwen2-1.5b", "qwen2-moe-a2.7b",
+          "llama4-scout-17b-a16e", "graphsage-reddit", "dlrm-rm2", "sasrec",
+          "dcn-v2", "wide-deep", "aisaq-sift1m", "aisaq-sift1b",
+          "aisaq-kilt-e5")
+
+ASSIGNED_ARCHS: List[str] = list(_ORDER[:10])
+
+
+def get_arch(arch_id: str) -> ArchConfig:
+    """The ArchConfig of an `--arch` id. Unknown ids raise KeyError as the
+    reference's registry does; the LM and GNN ids raise
+    NotImplementedError (their models are ROADMAP.md §1 item 7)."""
+    if arch_id in _NOT_PORTED_ARCHS:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported: the LM and GNN models and "
+            "their training scaffolding are ROADMAP.md §1 item 7")
+    try:
+        return _REGISTRY[arch_id]
+    except KeyError:
+        raise KeyError(
+            f"unknown arch {arch_id!r}; known: {sorted(_ORDER)}") from None
+
+
+def list_archs(include_extra: bool = True) -> List[str]:
+    return list(_ORDER) if include_extra else list(ASSIGNED_ARCHS)

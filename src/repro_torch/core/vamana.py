@@ -170,3 +170,34 @@ def random_regular_graph(n: int, R: int, *, seed: int = 0,
         dup = torch.zeros_like(graph, dtype=torch.bool)
         dup.scatter_(1, order[:, 1:], dup_sorted)    # later copies only
         graph[dup] = draw(rows[dup])
+
+
+def shard_bounds(n: int, n_shards: int) -> np.ndarray:
+    """(n_shards + 1,) row bounds of the contiguous split `build_sharded`
+    makes: shard s holds rows bounds[s]:bounds[s + 1]."""
+    return np.linspace(0, n, n_shards + 1).astype(int)
+
+
+def _build_shard(args):
+    data, kw = args
+    return build_vamana(data, **kw)
+
+
+def build_sharded(data: np.ndarray, n_shards: int, *, processes: int = 1,
+                  **kw):
+    """Paper Fig. 5: independent per-shard sub-indices over a dataset split.
+
+    Returns list of (global_id_offset, shard_data, shard_graph); every
+    shard is `build_vamana(shard_data, **kw)`. With processes > 1 the
+    shards are built side by side in that many spawned processes, each
+    with the same arguments, so the graphs are the same bytes.
+    """
+    bounds = shard_bounds(data.shape[0], n_shards)
+    parts = [data[bounds[s]:bounds[s + 1]] for s in range(n_shards)]
+    if processes > 1 and n_shards > 1:
+        import multiprocessing as mp
+        with mp.get_context("spawn").Pool(min(processes, n_shards)) as pool:
+            graphs = pool.map(_build_shard, [(d, kw) for d in parts])
+    else:
+        graphs = [build_vamana(d, **kw) for d in parts]
+    return [(int(bounds[s]), parts[s], graphs[s]) for s in range(n_shards)]

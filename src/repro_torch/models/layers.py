@@ -26,12 +26,16 @@ def truncnorm_init(shape: Sequence[int], scale: float, *,
                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """scale * N(0, 1) truncated to [-2, 2], by inverting the CDF of a
     uniform draw between the two bounds (the truncated normal of
-    `jax.random.truncated_normal`, whose variance is not rescaled)."""
+    `jax.random.truncated_normal`, whose variance is not rescaled).
+
+    Every step runs in place on the one float32 buffer it draws, so a
+    table takes its own size and no more (DLRM-rm2's largest table is
+    10.2 GB)."""
     u = torch.empty(tuple(shape), dtype=torch.float32,
                     device=resolve_device(device))
     u.uniform_(-_ERF_HI, _ERF_HI, generator=generator)
-    x = torch.erfinv(u).mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
-    return (scale * x).to(dtype)
+    u.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(scale)
+    return u.to(dtype)
 
 
 def init_dense(shape: Sequence[int], *, generator: torch.Generator,

@@ -1,17 +1,18 @@
-"""SASRec retrieval over PQ codes (port of the SASRec half of
-`repro.models.recsys`).
+"""Recommender models: DLRM, DCN-v2, Wide&Deep and SASRec, with their CTR
+forward and retrieval over PQ codes (port of `repro.models.recsys`).
 
 The `retrieval_cand` regime scores one user against every item of the
-catalogue, in two ways:
+catalogue (the rows of table 0, projected by `item_proj`), in two ways:
   * exact — the user tower dotted with every projected item embedding;
   * pq    — the paper's technique: ADC over the PQ codes of the projected
             item embeddings (`kernels.ops.adc`), then an exact re-rank of
             the top k * rerank_mult.
 
-Parameters live in an `nn.Module` (`SASRec`), made by `init_recsys` from
-a `torch.Generator` or carried across from the JAX package's parameter
-pytree by `recsys_params_from_jax`. Only kind="sasrec" is ported; the
-other towers and the CTR forward are queued in ROADMAP §1.
+Parameters live in one `nn.Module` per kind (`DLRM`, `DCNv2`, `WideDeep`,
+`SASRec`), made by `init_recsys` from a `torch.Generator` or carried
+across from the JAX package's parameter pytree by
+`recsys_params_from_jax`. Tables keep the reference's padding
+(`padded_vocab`) and its published cardinalities.
 """
 from __future__ import annotations
 
@@ -32,9 +33,9 @@ from repro_torch.models.layers import init_dense, mlp_apply, mlp_stack, \
 
 VOCAB_PAD = 2048  # table rows padded as the reference pads them
 
-_NOT_PORTED = ("only the sasrec tower is ported; the dlrm, dcnv2 and "
-               "widedeep towers and the CTR forward are queued in "
-               "ROADMAP.md §1 (the recsys towers and CTR forward)")
+# the request inputs each kind's user tower reads (make_retrieval_fn)
+TOWER_INPUTS = {"sasrec": ("seq",), "dlrm": ("dense", "sparse"),
+                "dcnv2": ("sparse",), "widedeep": ("sparse",)}
 
 
 def padded_vocab(v: int) -> int:
@@ -61,6 +62,49 @@ def _ln(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     return (x - mu) * torch.rsqrt(var + eps) * scale
 
 
+class Recsys(nn.Module):
+    """The parameters every kind has: the sparse tables and the retrieval
+    tower's item projection."""
+
+    def __init__(self, tables, item_proj):
+        super().__init__()
+        self.tables = nn.ParameterList(nn.Parameter(t) for t in tables)
+        self.item_proj = nn.Parameter(item_proj)
+
+    @property
+    def device(self) -> torch.device:
+        return self.item_proj.device
+
+
+class DLRM(Recsys):
+    """DLRM: a bottom MLP over the dense features, pairwise dot products
+    of the (dense, sparse) embeddings, and a top MLP over both."""
+
+    def __init__(self, tables, bot: nn.ModuleList, top: nn.ModuleList,
+                 item_proj):
+        super().__init__(tables, item_proj)
+        self.bot, self.top = bot, top
+
+
+class DCNv2(Recsys):
+    """DCN-v2: cross layers `x0 * (x @ w + b) + x`, then a deep MLP."""
+
+    def __init__(self, tables, cross: nn.ModuleList, mlp: nn.ModuleList,
+                 item_proj):
+        super().__init__(tables, item_proj)
+        self.cross, self.mlp = cross, mlp
+
+
+class WideDeep(Recsys):
+    """Wide&Deep: a deep MLP over the concatenated embeddings plus a wide
+    term, one scalar table per field."""
+
+    def __init__(self, tables, wide, mlp: nn.ModuleList, item_proj):
+        super().__init__(tables, item_proj)
+        self.wide = nn.ParameterList(nn.Parameter(t) for t in wide)
+        self.mlp = mlp
+
+
 class SASRecBlock(nn.Module):
     """One self-attention block: single-head causal attention and a
     two-layer relu MLP, each behind a pre-norm residual."""
@@ -72,21 +116,15 @@ class SASRecBlock(nn.Module):
         self.ff = ff
 
 
-class SASRec(nn.Module):
+class SASRec(Recsys):
     """SASRec's parameters (item tables, positions, blocks, the retrieval
     tower's item projection); `forward(seq)` is the reference's
     `sasrec_hidden`: (B, S) item ids -> (B, S, D) hidden states."""
 
     def __init__(self, tables, pos, blocks, item_proj):
-        super().__init__()
-        self.tables = nn.ParameterList(nn.Parameter(t) for t in tables)
+        super().__init__(tables, item_proj)
         self.pos = nn.Parameter(pos)
         self.blocks = nn.ModuleList(blocks)
-        self.item_proj = nn.Parameter(item_proj)
-
-    @property
-    def device(self) -> torch.device:
-        return self.pos.device
 
     def forward(self, seq: torch.Tensor) -> torch.Tensor:
         full_fp32()
@@ -113,55 +151,90 @@ class SASRec(nn.Module):
 
 
 def init_recsys(cfg: RecsysConfig, *, generator: torch.Generator,
-                device: DeviceLike = None) -> SASRec:
-    """Random SASRec parameters on `device` (default: the card), drawn from
-    `generator`, with the reference's shapes and scales."""
-    if cfg.kind != "sasrec":
-        raise NotImplementedError(_NOT_PORTED)
+                device: DeviceLike = None) -> Recsys:
+    """Random parameters of `cfg.kind` on `device` (default: the card),
+    drawn from `generator`, with the reference's shapes and scales. Each
+    table is drawn in place at its padded size, one after another."""
     dev = resolve_device(device)
-    D, S = cfg.embed_dim, cfg.seq_len
+    D = cfg.embed_dim
     kw = dict(generator=generator, device=dev)
     tables = [truncnorm_init((padded_vocab(v), D), 0.05, **kw)
               for v in cfg.vocab_sizes]
-    pos = truncnorm_init((S, D), 0.05, **kw)
-    blocks = [SASRecBlock(init_dense((D, D), **kw), init_dense((D, D), **kw),
-                          init_dense((D, D), **kw),
-                          torch.ones((D,), device=dev),
-                          torch.ones((D,), device=dev),
-                          mlp_stack((D, D, D), **kw))
-              for _ in range(cfg.n_blocks)]
-    return SASRec(tables, pos, blocks, init_dense((D, D), **kw))
+    if cfg.kind == "dlrm":
+        bot = mlp_stack((cfg.n_dense,) + cfg.bot_mlp, **kw)
+        n_f = cfg.n_sparse + 1
+        d_int = n_f * (n_f - 1) // 2 + cfg.bot_mlp[-1]
+        top = mlp_stack((d_int,) + cfg.top_mlp, **kw)
+        return DLRM(tables, bot, top, init_dense((D, D), **kw))
+    if cfg.kind == "dcnv2":
+        d0 = cfg.n_dense + cfg.n_sparse * D
+        cross = nn.ModuleList(nn.ParameterDict({
+            "w": nn.Parameter(init_dense((d0, d0), **kw)),
+            "b": nn.Parameter(torch.zeros((d0,), device=dev))})
+            for _ in range(cfg.n_cross_layers))
+        mlp = mlp_stack((d0,) + cfg.mlp + (1,), **kw)
+        return DCNv2(tables, cross, mlp, init_dense((D, D), **kw))
+    if cfg.kind == "widedeep":
+        wide = [truncnorm_init((padded_vocab(v), 1), 0.01, **kw)
+                for v in cfg.vocab_sizes]
+        mlp = mlp_stack((cfg.n_sparse * D,) + cfg.mlp + (1,), **kw)
+        return WideDeep(tables, wide, mlp, init_dense((D, D), **kw))
+    if cfg.kind == "sasrec":
+        S = cfg.seq_len
+        pos = truncnorm_init((S, D), 0.05, **kw)
+        blocks = [SASRecBlock(init_dense((D, D), **kw),
+                              init_dense((D, D), **kw),
+                              init_dense((D, D), **kw),
+                              torch.ones((D,), device=dev),
+                              torch.ones((D,), device=dev),
+                              mlp_stack((D, D, D), **kw))
+                  for _ in range(cfg.n_blocks)]
+        return SASRec(tables, pos, blocks, init_dense((D, D), **kw))
+    raise ValueError(cfg.kind)
 
 
-def recsys_params_from_jax(p: dict, *, device: DeviceLike = None) -> SASRec:
-    """The JAX package's SASRec parameter pytree (`tables`, `pos`,
-    `blocks[i].{wq,wk,wv,ln1,ln2,ff}`, `item_proj`), as numpy arrays, into
-    the port's parameters on `device`."""
-    if "blocks" not in p:
-        raise NotImplementedError(_NOT_PORTED)
+def recsys_params_from_jax(p: dict, *, device: DeviceLike = None) -> Recsys:
+    """The JAX package's parameter pytree, as numpy arrays, into the
+    port's parameters on `device`. The kind follows from its keys: `bot` /
+    `top` (DLRM), `cross` / `mlp` (DCN-v2), `wide` / `mlp` (Wide&Deep),
+    `pos` / `blocks` (SASRec); every kind has `tables` and `item_proj`."""
     dev = resolve_device(device)
 
     def t(a):
         return to_tensor(a, dev, torch.float32)
 
-    blocks = []
-    for b in p["blocks"]:
-        ff = nn.ModuleList(nn.ParameterDict({
+    def layers(ls) -> nn.ModuleList:
+        return nn.ModuleList(nn.ParameterDict({
             "w": nn.Parameter(t(l["w"])), "b": nn.Parameter(t(l["b"]))})
-            for l in b["ff"])
-        blocks.append(SASRecBlock(t(b["wq"]), t(b["wk"]), t(b["wv"]),
-                                  t(b["ln1"]), t(b["ln2"]), ff))
-    return SASRec([t(x) for x in p["tables"]], t(p["pos"]), blocks,
-                  t(p["item_proj"]))
+            for l in ls)
+
+    tables = [t(x) for x in p["tables"]]
+    proj = t(p["item_proj"])
+    if "bot" in p:
+        return DLRM(tables, layers(p["bot"]), layers(p["top"]), proj)
+    if "cross" in p:
+        return DCNv2(tables, layers(p["cross"]), layers(p["mlp"]), proj)
+    if "wide" in p:
+        return WideDeep(tables, [t(x) for x in p["wide"]],
+                        layers(p["mlp"]), proj)
+    if "blocks" in p:
+        blocks = [SASRecBlock(t(b["wq"]), t(b["wk"]), t(b["wv"]),
+                              t(b["ln1"]), t(b["ln2"]), layers(b["ff"]))
+                  for b in p["blocks"]]
+        return SASRec(tables, t(p["pos"]), blocks, proj)
+    raise ValueError(f"no recommender kind has the keys {sorted(p)}")
 
 
 # ---------------------------------------------------------------------------
-# retrieval scoring (the paper's regime)
+# forwards
 # ---------------------------------------------------------------------------
 
 
-def _batch(p: SASRec, batch: Dict, key: str) -> torch.Tensor:
-    return to_tensor(batch[key], p.device, torch.long)
+def _batch(p: Recsys, batch: Dict, key: str) -> torch.Tensor:
+    """batch[key] on the parameters' device: float32 for the dense
+    features, int64 ids for everything else."""
+    dtype = torch.float32 if key == "dense" else torch.long
+    return to_tensor(batch[key], p.device, dtype)
 
 
 def _top(x: torch.Tensor, k: int, *, largest: bool):
@@ -171,35 +244,118 @@ def _top(x: torch.Tensor, k: int, *, largest: bool):
     return vals[..., :k], pos[..., :k]
 
 
+def _sparse_embs(p: Recsys, batch: Dict, cfg: RecsysConfig
+                 ) -> torch.Tensor:
+    """-> (B, n_sparse, D): each field's bag of ids summed in its table."""
+    sparse = _batch(p, batch, "sparse")
+    return torch.stack([embedding_bag(t, sparse[:, i, :])
+                        for i, t in enumerate(p.tables)], dim=1)
+
+
 def sasrec_hidden(p: SASRec, seq: torch.Tensor, cfg: RecsysConfig
                   ) -> torch.Tensor:
     """(B, S) item ids -> (B, S, D)."""
     if cfg.kind != "sasrec":
-        raise NotImplementedError(_NOT_PORTED)
+        raise ValueError(f"sasrec_hidden of a {cfg.kind} model")
     return p(seq)
 
 
 @torch.no_grad()
-def user_tower(p: SASRec, batch: Dict, cfg: RecsysConfig) -> torch.Tensor:
-    """-> (B, D) user representation for retrieval: the last position's
-    hidden state."""
-    return sasrec_hidden(p, _batch(p, batch, "seq"), cfg)[:, -1]
+def rec_forward(p: Recsys, batch: Dict, cfg: RecsysConfig) -> torch.Tensor:
+    """CTR forward -> logits (B,). batch: dense (B, n_dense) f32, sparse
+    (B, n_sparse, multi_hot) ids; SASRec: seq (B, S), target (B,)."""
+    full_fp32()
+    if cfg.kind == "dlrm":
+        d = mlp_apply(p.bot, _batch(p, batch, "dense"), final_act=True)
+        s = _sparse_embs(p, batch, cfg)                        # (B, ns, D)
+        z = torch.cat([d[:, None, :], s], dim=1)               # (B, F, D)
+        zz = torch.einsum("bfd,bgd->bfg", z, z)
+        f = z.shape[1]
+        # the same row-major pairs as jnp.triu_indices(f, k=1)
+        iu, ju = torch.triu_indices(f, f, 1, device=z.device)
+        inter = zz[:, iu, ju]                                  # (B, F(F-1)/2)
+        return mlp_apply(p.top, torch.cat([d, inter], -1))[:, 0]
+    if cfg.kind == "dcnv2":
+        dense = _batch(p, batch, "dense")
+        s = _sparse_embs(p, batch, cfg).reshape(dense.shape[0], -1)
+        x0 = torch.cat([dense, s], dim=-1)
+        x = x0
+        for c in p.cross:
+            x = x0 * (x @ c["w"] + c["b"]) + x                 # DCNv2 cross
+        return mlp_apply(p.mlp, x)[:, 0]
+    if cfg.kind == "widedeep":
+        s = _sparse_embs(p, batch, cfg)
+        deep = mlp_apply(p.mlp, s.reshape(s.shape[0], -1))[:, 0]
+        sparse = _batch(p, batch, "sparse")
+        # a left-to-right Python sum over the fields, as the reference's
+        wide = sum(embedding_bag(w, sparse[:, i, :])[:, 0]
+                   for i, w in enumerate(p.wide))
+        return deep + wide
+    if cfg.kind == "sasrec":
+        h = sasrec_hidden(p, _batch(p, batch, "seq"), cfg)     # (B, S, D)
+        tgt = p.tables[0][_batch(p, batch, "target")]          # (B, D)
+        return torch.einsum("bd,bd->b", h[:, -1], tgt)
+    raise ValueError(cfg.kind)
 
 
-def _project(p: SASRec, rows: torch.Tensor) -> torch.Tensor:
+@torch.no_grad()
+def rec_loss(p: Recsys, batch: Dict, cfg: RecsysConfig):
+    """The training loss's forward value and its aux metrics (no
+    backward): SASRec's next-item BCE with one sampled negative per
+    position, the CTR kinds' logistic loss against `batch["label"]`."""
+    if cfg.kind == "sasrec":
+        h = sasrec_hidden(p, _batch(p, batch, "seq"), cfg)     # (B, S, D)
+        pos = p.tables[0][_batch(p, batch, "pos_items")]
+        neg = p.tables[0][_batch(p, batch, "neg_items")]
+        sp = torch.einsum("bsd,bsd->bs", h, pos)
+        sn = torch.einsum("bsd,bsd->bs", h, neg)
+        m = to_tensor(batch["seq_mask"], p.device, torch.float32)
+        loss = -(torch.log(torch.sigmoid(sp) + 1e-9)
+                 + torch.log(1 - torch.sigmoid(sn) + 1e-9))
+        denom = m.sum().clamp_min(1.0)
+        return (loss * m).sum() / denom, {"pos_score": (sp * m).sum() / denom}
+    logits = rec_forward(p, batch, cfg)
+    y = to_tensor(batch["label"], p.device, torch.float32)
+    loss = torch.mean(logits.clamp_min(0) - logits * y
+                      + torch.log1p(torch.exp(-logits.abs())))
+    return loss, {"mean_logit": logits.mean()}
+
+
+# ---------------------------------------------------------------------------
+# retrieval scoring (the paper's regime)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def user_tower(p: Recsys, batch: Dict, cfg: RecsysConfig) -> torch.Tensor:
+    """-> (B, D) user representation for retrieval: SASRec's last hidden
+    state; DLRM's bottom MLP plus its mean sparse embedding; DCN-v2's and
+    Wide&Deep's mean sparse embedding."""
+    full_fp32()
+    if cfg.kind == "sasrec":
+        return sasrec_hidden(p, _batch(p, batch, "seq"), cfg)[:, -1]
+    if cfg.kind == "dlrm":
+        return mlp_apply(p.bot, _batch(p, batch, "dense"), final_act=True) \
+            + _sparse_embs(p, batch, cfg).mean(dim=1)
+    if cfg.kind in ("dcnv2", "widedeep"):
+        return _sparse_embs(p, batch, cfg).mean(dim=1)
+    raise ValueError(cfg.kind)
+
+
+def _project(p: Recsys, rows: torch.Tensor) -> torch.Tensor:
     full_fp32()
     return p.tables[0][rows] @ p.item_proj
 
 
 @torch.no_grad()
-def item_vectors(p: SASRec, cand_ids) -> torch.Tensor:
+def item_vectors(p: Recsys, cand_ids) -> torch.Tensor:
     """(C,) item ids -> (C, D) projected item embeddings: the vectors the
     PQ codes of the retrieval path encode."""
     return _project(p, to_tensor(cand_ids, p.device, torch.long))
 
 
 @torch.no_grad()
-def retrieval_scores(p: SASRec, batch: Dict, cfg: RecsysConfig
+def retrieval_scores(p: Recsys, batch: Dict, cfg: RecsysConfig
                      ) -> torch.Tensor:
     """Exact scoring: (B, n_cand). Candidates = rows of table 0, projected."""
     u = user_tower(p, batch, cfg)                            # (B, D)
@@ -208,7 +364,7 @@ def retrieval_scores(p: SASRec, batch: Dict, cfg: RecsysConfig
 
 
 @torch.no_grad()
-def retrieval_topk(p: SASRec, batch: Dict, cfg: RecsysConfig, k: int = 100
+def retrieval_topk(p: Recsys, batch: Dict, cfg: RecsysConfig, k: int = 100
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k: (ids (B, k), scores (B, k))."""
     vals, idx = _top(retrieval_scores(p, batch, cfg), k, largest=True)
@@ -216,7 +372,7 @@ def retrieval_topk(p: SASRec, batch: Dict, cfg: RecsysConfig, k: int = 100
 
 
 @torch.no_grad()
-def retrieval_topk_pq(p: SASRec, batch: Dict, cfg: RecsysConfig,
+def retrieval_topk_pq(p: Recsys, batch: Dict, cfg: RecsysConfig,
                       pq_codes: torch.Tensor, centroids: torch.Tensor,
                       k: int = 100, rerank_mult: int = 4, *,
                       backend: str = "auto"
@@ -240,15 +396,18 @@ def retrieval_topk_pq(p: SASRec, batch: Dict, cfg: RecsysConfig,
     return pre[idx][None], vals[None]
 
 
-def make_retrieval_fn(p: SASRec, cfg: RecsysConfig, pq_codes: torch.Tensor,
+def make_retrieval_fn(p: Recsys, cfg: RecsysConfig, pq_codes: torch.Tensor,
                       centroids: torch.Tensor, k: int = 100,
                       rerank_mult: int = 4):
     """`retrieval_topk_pq` as a callable `batch -> (ids (1, k), scores (1,
-    k))` at fixed shapes. On the card the whole request (user tower,
+    k))` at fixed shapes. The request's inputs are those the kind's user
+    tower reads (`TOWER_INPUTS`): SASRec's `seq` (B, S); DLRM's `dense`
+    (B, n_dense) and `sparse` (B, n_sparse, multi_hot); DCN-v2's and
+    Wide&Deep's `sparse`. On the card the whole request (user tower,
     `pq_lut`, `pq_adc`, the stable sort, the projection, the product and
     the second stable sort) is captured in one CUDA graph at the first call
-    for each shape of `batch["seq"]`, after one eager warm-up; each call
-    copies the request's item ids into the graph's fixed input and replays
+    for each shape of those inputs, after one eager warm-up; each call
+    copies the request's inputs into the graph's fixed ones and replays
     it. The outputs are the graph's fixed tensors, which the next call
     overwrites: copy them out (e.g. `.cpu()`) before calling again. A lock
     keeps callers from replaying at once. On the CPU it calls
@@ -257,22 +416,25 @@ def make_retrieval_fn(p: SASRec, cfg: RecsysConfig, pq_codes: torch.Tensor,
     if p.device.type != "cuda":
         return lambda batch: retrieval_topk_pq(
             p, batch, cfg, pq_codes, centroids, k, rerank_mult)
-    graphs: Dict[tuple, Tuple[torch.Tensor, Graph]] = {}
+    keys = TOWER_INPUTS[cfg.kind]
+    graphs: Dict[tuple, Tuple[Tuple[torch.Tensor, ...], Graph]] = {}
     lock = threading.Lock()
 
-    def request(seq: torch.Tensor):
-        return retrieval_topk_pq(p, {"seq": seq}, cfg, pq_codes, centroids,
-                                 k, rerank_mult)
+    def request(inputs: Tuple[torch.Tensor, ...]):
+        return retrieval_topk_pq(p, dict(zip(keys, inputs)), cfg, pq_codes,
+                                 centroids, k, rerank_mult)
 
     def serve(batch: Dict):
-        seq = _batch(p, batch, "seq")
+        inputs = tuple(_batch(p, batch, key) for key in keys)
+        shapes = tuple(t.shape for t in inputs)
         with lock, torch.no_grad():
-            if seq.shape not in graphs:
-                static = seq.clone()
+            if shapes not in graphs:
+                static = tuple(t.clone() for t in inputs)
                 warm_up(lambda: request(static))
-                graphs[seq.shape] = static, Graph(lambda: request(static))
-            static, graph = graphs[seq.shape]
-            static.copy_(seq)
+                graphs[shapes] = static, Graph(lambda: request(static))
+            static, graph = graphs[shapes]
+            for fixed, t in zip(static, inputs):
+                fixed.copy_(t)
             graph.replay()
             return graph.out
     return serve

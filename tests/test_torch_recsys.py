@@ -13,7 +13,10 @@ import pytest
 import torch
 
 from repro.configs.base import REC_SHAPES
+from repro.configs.dcn_v2 import MODEL as JDCN
+from repro.configs.dlrm_rm2 import MODEL as JDLRM
 from repro.configs.sasrec import MODEL as JSASREC
+from repro.configs.wide_deep import MODEL as JWD
 from repro.core import pq as jpq
 from repro.models import layers as jlayers
 from repro.models import recsys as jrec
@@ -58,9 +61,14 @@ def _batch(seq):
 
 def test_configs_are_copies():
     assert dataclasses.asdict(configs.SASREC) == dataclasses.asdict(JSASREC)
+    for mine, theirs in ((configs.DLRM_RM2, JDLRM), (configs.DCN_V2, JDCN),
+                         (configs.WIDE_DEEP, JWD)):
+        assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
     cand = [s for s in REC_SHAPES if s.name == "retrieval_cand"][0]
     assert dataclasses.asdict(configs.RETRIEVAL_CAND) == \
         dataclasses.asdict(cand)
+    assert [dataclasses.asdict(s) for s in configs.REC_SHAPES] == \
+        [dataclasses.asdict(s) for s in REC_SHAPES]
     assert CFG.scaled(name="x").name == "x"
 
 
@@ -120,6 +128,26 @@ def test_truncnorm_init_distribution():
     assert x.min() >= -2.0 and x.max() <= 2.0
     assert abs(x.mean()) < 0.01 and abs(x.mean() - y.mean()) < 0.01
     assert abs(x.std() - y.std()) < 0.01
+
+
+@pytest.mark.parametrize("shape,scale", [((37, 11), 0.05), ((1000,), 1.0),
+                                         ((64, 64), 64 ** -0.5)])
+def test_truncnorm_init_in_place_is_bit_equal_to_the_expression(shape, scale):
+    """The in-place draw (uniform_, erfinv_, mul_, clamp_, mul_ on one
+    buffer) gives the bits of the three-buffer expression it replaced."""
+    import math
+    hi = math.erf(2.0 / math.sqrt(2.0))
+    u = torch.empty(shape).uniform_(-hi, hi,
+                                    generator=torch.Generator().manual_seed(7))
+    want = scale * torch.erfinv(u).mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    got = layers.truncnorm_init(shape, scale,
+                                generator=torch.Generator().manual_seed(7),
+                                device="cpu")
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    half = layers.truncnorm_init(shape, scale, dtype=torch.float16,
+                                 generator=torch.Generator().manual_seed(7),
+                                 device="cpu")
+    assert torch.equal(half, want.to(torch.float16))
 
 
 def test_mlp_apply_matches_jax():
@@ -224,11 +252,22 @@ def test_make_retrieval_fn_on_the_cpu_matches_jax(model, pq_model, seed):
         np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
 
 
-def test_other_towers_are_not_ported():
-    dlrm = configs.RecsysConfig(name="dlrm", kind="dlrm", embed_dim=16,
-                                vocab_sizes=(10,))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        recsys.init_recsys(dlrm, generator=torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        recsys.recsys_params_from_jax({"tables": [], "bot": []},
-                                      device="cpu")
+@pytest.mark.parametrize("kind,scale", [
+    ("dlrm", 0.05), ("dcnv2", 0.05), ("widedeep", 0.05), ("sasrec", 0.05)])
+def test_init_recsys_of_every_kind_bounds_its_tables(kind, scale):
+    """Each kind (the towers at the reference's published shapes, cut to
+    two 10-row fields) draws its tables at the padded size within 2
+    scales, the item projection within 2 / sqrt(D), on the CPU."""
+    cfg = {"dlrm": configs.DLRM_RM2, "dcnv2": configs.DCN_V2,
+           "widedeep": configs.WIDE_DEEP, "sasrec": CFG}[kind]
+    if kind != "sasrec":
+        cfg = cfg.scaled(vocab_sizes=(10, 10))
+    p = recsys.init_recsys(cfg, generator=torch.Generator().manual_seed(1),
+                           device="cpu")
+    D = cfg.embed_dim
+    for t, v in zip(p.tables, cfg.vocab_sizes):
+        assert tuple(t.shape) == (recsys.padded_vocab(v), D)
+        assert float(t.detach().abs().max()) <= 2 * scale * (1 + 1e-6)
+    assert tuple(p.item_proj.shape) == (D, D)
+    assert float(p.item_proj.detach().abs().max()) \
+        <= 2 * D ** -0.5 * (1 + 1e-6)
