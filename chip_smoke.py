@@ -145,7 +145,22 @@ non-zero):
      0, all 1,000 of Wide&Deep's) with PQ at m=16 / 8 / 8 trained on the
      card, 64 requests through `make_retrieval_fn` (a graph) and eagerly:
      p50/p99, graph vs eager answers equal, agreement with the plain path
-     (>= 0.99), launches, peak device bytes.
+     (>= 0.99), launches, peak device bytes;
+ 20. `[train]`: the recommender trainer (`repro_torch.launch.train`) on
+     the card: tiny SASRec and DCN-v2 3 steps on the card and on the CPU
+     from one state (largest parameter difference after each step within
+     TOL_TRAIN_PARAMS, the CPU tests' tolerance); tiny DCN-v2's 25 losses
+     at lr 1e-2 from the CPU's seed-0 state (the last and the mean of the
+     last 5 below the first, each within TOL_TRAIN_LOSS of the CPU's);
+     DLRM-rm2, DCN-v2, Wide&Deep
+     and SASRec one at a time at their published cardinalities and
+     train_batch (65,536 rows), 5 steps each: init seconds, step p50/p99
+     after the first, peak device bytes against the parameter and
+     optimizer bytes (DLRM-rm2's above them below its largest table: no
+     dense table gradient), rows touched a step, finite losses, the bound
+     of a step's float32 matrix products; tiny SASRec restarted after a
+     WorkerFailure at step 6 from its step-4 checkpoint, the final state
+     bit-equal to an uninterrupted run's; no port kernel launched.
 Each path's launch counts are reset just before it and read just after;
 the kernels line gives the main path's as `launches`, the storage
 path's as `launches_storage`, the dynamic index's (inserts and readers)
@@ -3264,6 +3279,225 @@ def phase_recsys_towers(n_requests: int = 64, k: int = 100,
     return total
 
 
+# ---------------------------------------------------------------------------
+# training the recommender towers
+# ---------------------------------------------------------------------------
+
+
+# parameters after a train step, port against reference on the CPU
+# (tests/test_torch_train.py); held here card against CPU
+TOL_TRAIN_PARAMS = 1e-4
+# losses of 25 tiny steps, card against CPU from one state
+TOL_TRAIN_LOSS = 1e-3
+TRAIN_ARCHS = ("dlrm-rm2", "dcn-v2", "wide-deep", "sasrec")
+
+
+def train_matmul_ops(cfg, n: int) -> float:
+    """Operations of one training step's float32 matrix products on n
+    rows: 3x the forward's (forward, and two products a layer backward).
+    The CTR kinds' forward as `ctr_bytes_ops` reckons it; SASRec's per
+    sequence and block: q, k, v and the two feed-forward layers (5 S D^2),
+    scores and the weighted sum (2 S^2 D), then the positive and negative
+    dots (2 S D)."""
+    if cfg.kind == "sasrec":
+        S, D = cfg.seq_len, cfg.embed_dim
+        macs = cfg.n_blocks * (5 * S * D * D + 2 * S * S * D) + 2 * S * D
+        return 3 * 2 * macs * n
+    return 3 * ctr_bytes_ops(cfg, n)[1]
+
+
+def max_param_diff(a, b) -> float:
+    from repro_torch.optim.adamw import param_tree
+    ta, tb = param_tree(a.params), param_tree(b.params)
+    return max(float((x.detach().cpu() - tb[n].detach().cpu()).abs().max())
+               for n, x in ta.items())
+
+
+def train_parity():
+    """Tiny SASRec and DCN-v2: 3 steps on the card and on the CPU from one
+    state (drawn on the CPU); the largest parameter difference after each
+    step within TOL_TRAIN_PARAMS."""
+    import torch
+    from repro_torch.distributed.train_step import state_to
+    from repro_torch.launch import train
+    for aid in ("sasrec", "dcn-v2"):
+        _, init, cpu_step, data = train.build_trainer(
+            aid, "train_batch", steps=3, device="cpu")
+        _, _, card_step, _ = train.build_trainer(aid, "train_batch",
+                                                 steps=3, device="cuda")
+        cpu = init(torch.Generator().manual_seed(0))
+        card = state_to(cpu, "cuda")
+        diffs, losses = [], []
+        for step in range(3):
+            b = data(step)
+            cpu, mc = cpu_step(cpu, b)
+            card, mg = card_step(card, b)
+            diffs.append(max_param_diff(cpu, card))
+            losses.append((float(mc["loss"]), float(mg["loss"])))
+        log("train", check="parity", arch=aid, steps=3,
+            max_param_diff=compact([f"{d:.3e}" for d in diffs]),
+            tol=TOL_TRAIN_PARAMS, loss_cpu_card=compact(losses))
+        require(max(diffs) <= TOL_TRAIN_PARAMS,
+                f"{aid}: card and CPU parameters differ by {max(diffs)}")
+
+
+def train_loss_curve():
+    """Tiny DCN-v2, 25 steps at lr 1e-2 from the CPU's seed-0 state, on
+    the card and on the CPU: the card's last loss below its first (the bar
+    of tests/test_system.py), the mean of its last 5 below its first too,
+    and each of its losses within TOL_TRAIN_LOSS of the CPU's."""
+    import torch
+    from repro_torch.distributed.train_step import state_to
+    from repro_torch.launch import train
+    kw = dict(steps=25, lr=1e-2, verbose=False)
+    _, init, _, _ = train.build_trainer("dcn-v2", "train_batch",
+                                        steps=25, lr=1e-2, device="cpu")
+    cpu_state = init(torch.Generator().manual_seed(0))
+    card = train.train_loop("dcn-v2", "train_batch", device="cuda",
+                            init_state=state_to(cpu_state, "cuda"),
+                            **kw)["losses"]
+    cpu = train.train_loop("dcn-v2", "train_batch", device="cpu",
+                           init_state=cpu_state, **kw)["losses"]
+    diff = max(abs(a - b) for a, b in zip(card, cpu))
+    last5 = float(np.mean(card[-5:]))
+    log("train", check="loss_curve", arch="dcn-v2", steps=25, lr=1e-2,
+        first=f"{card[0]:.5f}", last=f"{card[-1]:.5f}",
+        mean_last5=f"{last5:.5f}", cpu_last=f"{cpu[-1]:.5f}",
+        max_loss_diff_vs_cpu=f"{diff:.3e}", tol=TOL_TRAIN_LOSS,
+        losses=compact([f"{x:.4f}" for x in card]))
+    require(card[-1] < card[0], "dcn-v2: the loss did not fall")
+    require(last5 < card[0], "dcn-v2: the last 5 losses average above "
+            "the first")
+    require(diff <= TOL_TRAIN_LOSS,
+            f"dcn-v2: the card's losses differ from the CPU's by {diff}")
+
+
+def train_full_width(aid: str, steps: int = 5) -> dict:
+    """One arch at its published cardinalities and train_batch (65,536
+    rows): init, `steps` steps through `build_trainer`'s step; init
+    seconds, step p50/p99 after the first, peak device bytes against the
+    parameter and optimizer bytes, rows touched a step, losses, the bound
+    of a step's float32 matrix products."""
+    import gc
+
+    import torch
+    from repro_torch.device import to_tensor
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import param_tree
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    arch, init, step_fn, data = train.build_trainer(
+        aid, "train_batch", scale="full", steps=steps, device=dev)
+    cfg = arch.model
+    t0 = time.perf_counter()
+    state = init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = param_tree(state.params)
+    param_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    opt_bytes = sum(t.numel() * t.element_size()
+                    for d in (state.opt.m, state.opt.v, state.opt.master)
+                    for t in d.values())
+    table_bytes = [t.numel() * t.element_size() for n, t in params.items()
+                   if n.startswith("tables/")]
+    lat, losses, rows = [], [], []
+    for step in range(steps):
+        batch = {k: to_tensor(v, dev) for k, v in data(step).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        rows.append(m["rows_touched"])
+        del batch
+    peak = torch.cuda.max_memory_allocated() - base
+    total = torch.cuda.get_device_properties(0).total_memory
+    n = len(next(iter(data(0).values())))
+    b_ms = train_matmul_ops(cfg, n) / FP32_OPS_PER_S * 1e3
+    out = dict(arch=aid, batch=n, table_rows=sum(
+        t.shape[0] for n, t in params.items() if n.startswith("tables/")),
+        param_bytes=param_bytes, opt_bytes=opt_bytes,
+        init_s=f"{init_s:.2f}", first_step_ms=f"{lat[0] * 1e3:.3f}",
+        **{f"step_{k}": v for k, v in percentiles_ms(lat[1:]).items()},
+        step_bound_ms=f"{b_ms:.3f}", bound_by="operations",
+        peak_device_bytes=peak,
+        peak_above_params_and_opt=peak - param_bytes - opt_bytes,
+        rows_touched=compact(rows),
+        losses=compact([f"{x:.5f}" for x in losses]))
+    log("train", check="full_width", **out)
+    require(all(np.isfinite(losses)), f"{aid}: a loss is not finite")
+    require(peak < total, f"{aid}: peak {peak} above the card's {total}")
+    if aid == "dlrm-rm2":
+        # a dense gradient of the largest table alone would add its bytes
+        require(peak - param_bytes - opt_bytes < max(table_bytes),
+                f"{aid}: {peak - param_bytes - opt_bytes} bytes above the "
+                "parameters and optimizer state: a dense table gradient?")
+    del state, params, step_fn, init, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_restart(root: str):
+    """Tiny SASRec on the card: 10 steps with a checkpoint every 4 and a
+    WorkerFailure injected at step 6, resumed from step 4 by
+    `run_with_restarts`; the final parameters and optimizer state
+    bit-equal to an uninterrupted run's."""
+    import torch
+    from repro_torch.checkpoint.ckpt import _flatten
+    from repro_torch.distributed.fault_tolerance import run_with_restarts
+    from repro_torch.launch import train
+    kw = dict(steps=10, ckpt_every=4, verbose=False, device="cuda")
+    whole = train.train_loop("sasrec", "train_batch", **kw)
+    ckpt_dir = os.path.join(root, "train_restart")
+    resumed = []
+
+    def segment(resume_step):
+        resumed.append(resume_step)
+        hist = train.train_loop("sasrec", "train_batch", ckpt_dir=ckpt_dir,
+                                fail_at_step=6 if len(resumed) == 1
+                                else None, **kw)
+        segment.hist = hist
+        return hist["final_step"]
+
+    final = run_with_restarts(segment, max_restarts=1)
+    a, b = _flatten(whole["state"]), _flatten(segment.hist["state"])
+    equal = list(a) == list(b) and all(torch.equal(a[n], b[n]) for n in a)
+    log("train", check="restart", arch="sasrec", steps=10, ckpt_every=4,
+        failed_at=6, restarts=len(resumed) - 1,
+        resumed_losses=len(segment.hist["losses"]), final_step=final,
+        leaves=len(a), bit_equal=equal)
+    require(final == 10 and resumed == [None, 6]
+            and len(segment.hist["losses"]) == 6,
+            f"restart: resumed {resumed}, final step {final}")
+    require(segment.hist["losses"] == whole["losses"][4:],
+            "restart: the resumed losses differ")
+    require(equal, "restart: final state not bit-equal to the "
+            "uninterrupted run's")
+
+
+def phase_train(root: str):
+    """[train]: the recommender trainer on the card
+    (`repro_torch.launch.train`): card vs CPU parity, tiny DCN-v2's loss
+    falling over 25 steps at lr 1e-2, each arch at full width, and the
+    restart. The training path launches none of the port's kernels."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    _build.reset_launch_counts()
+    train_parity()
+    train_loss_curve()
+    full = [train_full_width(aid) for aid in TRAIN_ARCHS]
+    train_restart(root)
+    launches = sum(_build.launch_counts.values())
+    log("train", kernel_launches=launches)
+    require(launches == 0, "the training path launched a port kernel")
+    return full
+
+
 def main() -> int:
     faulthandler.enable()          # a crash in native code prints its stack
     # PyTorch tears CUPTI down after each profiler window and sets it up
@@ -3344,6 +3578,7 @@ def run_phases(root: str) -> int:
     sharded1m_launches = timed("sharded1m", phase_sharded1m, paths_1m,
                                searches_1m, root)
     tower_launches = timed("recsys_towers", phase_recsys_towers)
+    timed("train", phase_train, root)
     log("phase_s", total=round(sum(PHASE_S.values()), 2),
         by_phase=compact(PHASE_S))
     log("profiler", windows=len(PROFILED_LAUNCHES),

@@ -1,0 +1,155 @@
+"""Train state and the train / serve step factories of the recommender
+family (port of `repro.distributed.train_step`).
+
+The LM and GNN families raise NotImplementedError: their models are
+ROADMAP.md §1 item 7. A train step runs the loss forward and backward
+(autograd; the embedding tables get sparse gradients) and the optimizer,
+which updates the parameters and its state in place, as the reference's
+jitted step does with its donated state.
+"""
+from __future__ import annotations
+
+import copy
+from typing import Any, Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs import ArchConfig, ShapeConfig
+from repro_torch.device import DeviceLike, resolve_device, to_tensor
+from repro_torch.optim.adamw import (OptState, is_embedding, make_optimizer,
+                                     param_tree, warmup_cosine)
+
+
+class TrainState(NamedTuple):
+    params: Any           # the model (an nn.Module), named by param_tree
+    opt: OptState
+
+
+def _not_ported(family: str):
+    return NotImplementedError(
+        f"the {family} family is not ported: its models and their training "
+        "are ROADMAP.md §1 item 7")
+
+
+def default_optimizer(total_steps: int = 10000, base_lr: float = 3e-4):
+    return make_optimizer(warmup_cosine(base_lr, min(2000, total_steps // 10),
+                                        total_steps))
+
+
+def make_loss_fn(arch: ArchConfig, shape: ShapeConfig) -> Callable:
+    if arch.family == "recsys":
+        from repro_torch.models.recsys import rec_loss
+        return lambda p, b: rec_loss(p, b, arch.model)
+    if arch.family in ("lm", "gnn"):
+        raise _not_ported(arch.family)
+    raise ValueError(arch.family)
+
+
+def _grads(loss_fn, params: nn.Module, batch: dict):
+    tree = param_tree(params)
+    loss, metrics = loss_fn(params, batch)
+    gs = torch.autograd.grad(loss, list(tree.values()), allow_unused=True)
+    grads = dict(zip(tree, gs))
+    for n, g in grads.items():
+        # the optimizer's row-wise leaves (the tables) train on the rows
+        # `recsys.lookup` read; a dense gradient would double their size
+        if is_embedding(n) and g is not None and not g.is_sparse:
+            raise RuntimeError(f"{n}: a dense gradient of shape "
+                               f"{tuple(g.shape)}; tables train on "
+                               "sparse gradients")
+    return loss.detach(), metrics, grads
+
+
+def _add(a: Optional[torch.Tensor], b: Optional[torch.Tensor]):
+    """a + b with None as zeros; two sparse gradients concatenate (the
+    optimizer's coalesce sums their duplicate rows)."""
+    if a is None or b is None:
+        return b if a is None else a
+    return a + b
+
+
+def make_train_step(arch: ArchConfig, shape: ShapeConfig, optimizer=None,
+                    microbatches: int = 1) -> Callable:
+    """Returns train_step(state, batch) -> (state, metrics); the state is
+    updated in place. With `microbatches` > 1 the batch is cut into that
+    many consecutive slices; their float32 gradients are summed and
+    divided by the count, the loss is the mean of theirs and the other
+    metrics are the last slice's."""
+    loss_fn = make_loss_fn(arch, shape)
+    _, opt_update = optimizer or default_optimizer()
+
+    def train_step(state: TrainState, batch: dict):
+        if microbatches == 1:
+            loss, metrics, grads = _grads(loss_fn, state.params, batch)
+        else:
+            g_sum: Dict[str, Optional[torch.Tensor]] = {}
+            l_sum = None
+            for i in range(microbatches):
+                def sl(x):
+                    per = x.shape[0] // microbatches
+                    return x[i * per:(i + 1) * per]
+                loss, metrics, g = _grads(loss_fn, state.params,
+                                          {k: sl(v) for k, v in batch.items()})
+                g_sum = {n: _add(g_sum.get(n), x) for n, x in g.items()}
+                l_sum = loss if l_sum is None else l_sum + loss
+            grads = {n: None if x is None else
+                     (x.coalesce() if x.is_sparse else x) / microbatches
+                     for n, x in g_sum.items()}
+            loss = l_sum / microbatches
+        _, _, stats = opt_update(grads, state.opt, state.params)
+        return state, {"loss": loss, **metrics, **stats}
+
+    return train_step
+
+
+def make_serve_step(arch: ArchConfig, shape: ShapeConfig) -> Callable:
+    if arch.family in ("lm", "gnn"):
+        raise _not_ported(arch.family)
+    if arch.family != "recsys":
+        raise ValueError((arch.family, shape.kind))
+    from repro_torch.models import recsys as R
+    if shape.kind == "rec_retrieval":
+        return lambda p, b: R.retrieval_topk(p, b, arch.model, k=100)
+    return lambda p, b: R.rec_forward(p, b, arch.model)
+
+
+def state_to(state: TrainState, device: DeviceLike = None) -> TrainState:
+    """A copy of `state` on `device` (default: the card)."""
+    dev = resolve_device(device)
+    opt = OptState(state.opt.step.to(dev, copy=True),
+                   *({n: t.to(dev, copy=True) for n, t in d.items()}
+                     for d in (state.opt.m, state.opt.v, state.opt.master)))
+    return TrainState(copy.deepcopy(state.params).to(dev), opt)
+
+
+def _leaves(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{path: array} of a nested dict / list of arrays (a reference tree)."""
+    if isinstance(tree, dict):
+        items = [(str(k), v) for k, v in tree.items()]
+    elif isinstance(tree, (list, tuple)):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        return {prefix: np.asarray(tree)}
+    out = {}
+    for k, v in items:
+        out.update(_leaves(v, f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def train_state_from_jax(state, *, device: DeviceLike = None) -> TrainState:
+    """The reference's TrainState (params and OptState, as numpy arrays or
+    anything `np.asarray` takes) as the port's, on `device`."""
+    from repro_torch.models.recsys import recsys_params_from_jax
+    dev = resolve_device(device)
+    params = recsys_params_from_jax(state.params, device=dev)
+    names = list(param_tree(params))
+
+    def opt_dict(tree):
+        leaves = _leaves(tree)
+        return {n: to_tensor(leaves[n], dev) for n in names}
+    opt = state.opt
+    return TrainState(params, OptState(
+        to_tensor(np.asarray(opt.step), dev, torch.int32),
+        opt_dict(opt.m), opt_dict(opt.v), opt_dict(opt.master)))

@@ -1,0 +1,158 @@
+"""Training launcher of the recommender towers: state init, checkpoint and
+restart, heartbeats, deterministic data resume (port of
+`repro.launch.train`, recommender family).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \
+        --shape train_batch --steps 100 [--ckpt-dir DIR] [--scale tiny|full]
+        [--lr 3e-3] [--device cuda|cpu]
+
+`--scale tiny` keeps every width and cuts each table to at most 2,000 rows
+and the batch to at most 64, as the reference does; `--scale full` trains
+the published cardinalities at the shape's batch (train_batch: 65,536).
+Parameters are drawn from a seeded `torch.Generator`, or come from a
+reference state (`train_state_from_jax`, or a checkpoint of either package
+in `--ckpt-dir`, which a run resumes from).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch.checkpoint.ckpt import AsyncCheckpointer, latest_step, \
+    restore
+from repro_torch.configs import get_arch
+from repro_torch.device import DeviceLike, resolve_device, to_tensor
+from repro_torch.distributed.fault_tolerance import Heartbeat, WorkerFailure
+from repro_torch.distributed.train_step import (TrainState, default_optimizer,
+                                                make_train_step)
+
+
+def _make_init(arch):
+    """(generator, device) -> parameters (the recommender branch of the
+    reference's `launch.inputs._make_init`)."""
+    from repro_torch.models.recsys import init_recsys
+    return lambda generator, device: init_recsys(
+        arch.model, generator=generator, device=device)
+
+
+def build_trainer(arch_id: str, shape_name: str, *, scale: str = "tiny",
+                  microbatches: int = 1, lr: float = 3e-3, steps: int = 100,
+                  device: DeviceLike = None):
+    """Returns (arch, state_init, step_fn, data_gen). `state_init(generator
+    =None, device=None)` draws the parameters from `generator` (default: a
+    generator on the device seeded with 0) and a fresh optimizer state, on
+    `device` (default: the trainer's; "meta" gives a skeleton that
+    allocates nothing, for `restore` to fill)."""
+    dev = resolve_device(device)
+    arch = get_arch(arch_id)           # the LM and GNN ids raise here
+    if arch.family != "recsys":
+        raise ValueError(f"{arch_id} ({arch.family}) has no training path")
+    shape = arch.shape(shape_name)
+    if scale == "tiny":
+        # keep embed_dim (DLRM ties it to bot_mlp[-1]); shrink tables
+        arch = dataclasses.replace(arch, model=arch.model.scaled(
+            vocab_sizes=tuple(min(v, 2000) for v in arch.model.vocab_sizes)))
+        shape = dataclasses.replace(shape, batch=min(shape.batch, 64))
+    init_fn = _make_init(arch)
+    opt = default_optimizer(total_steps=steps, base_lr=lr)
+    opt_init, _ = opt
+    step_fn = make_train_step(arch, shape, optimizer=opt,
+                              microbatches=microbatches)
+    from repro_torch.data.pipeline import ClickStream, SasrecStream
+    ds = (SasrecStream(arch.model, shape.batch)
+          if arch.model.kind == "sasrec"
+          else ClickStream(arch.model, shape.batch))
+
+    def state_init(generator: Optional[torch.Generator] = None,
+                   device: DeviceLike = None) -> TrainState:
+        d = dev if device is None else torch.device(device)
+        g = generator or torch.Generator(
+            "cpu" if d.type == "meta" else d).manual_seed(0)
+        params = init_fn(g, d)
+        return TrainState(params, opt_init(params))
+
+    return arch, state_init, step_fn, ds.batch_at
+
+
+def train_loop(arch_id: str, shape_name: str, *, steps: int,
+               ckpt_dir: Optional[str] = None, ckpt_every: int = 20,
+               scale: str = "tiny", resume: bool = True,
+               fail_at_step: Optional[int] = None, verbose: bool = True,
+               lr: float = 3e-3, device: DeviceLike = None,
+               init_state: Optional[TrainState] = None):
+    """Run training with checkpoint/restart support. Returns the history
+    dict (losses, final_step, wall_s) and the final `state`.
+
+    The run starts from the newest checkpoint in `ckpt_dir` when there is
+    one (and `resume`), else from `init_state`, else from `state_init()`.
+    `fail_at_step` injects a WorkerFailure before that step runs (the
+    fault-tolerance tests); a checkpoint in flight is finished first."""
+    dev = resolve_device(device)
+    arch, state_init, step_fn, data_gen = build_trainer(
+        arch_id, shape_name, scale=scale, steps=steps, lr=lr, device=dev)
+    start = latest_step(ckpt_dir) if ckpt_dir and resume else None
+    if start is not None:
+        # the checkpoint fills `init_state` in place, or a skeleton on the
+        # meta device: no draw, and no second copy of the state
+        state = restore(ckpt_dir, init_state if init_state is not None
+                        else state_init(device="meta"), step=start,
+                        device=dev)
+        if verbose:
+            print(f"[train] resumed from step {start}")
+    else:
+        start = 0
+        state = init_state if init_state is not None else state_init()
+    ck = AsyncCheckpointer()
+    hb = Heartbeat(ckpt_dir, 0) if ckpt_dir else None
+    losses = []
+    t0 = time.time()
+    try:
+        for step in range(start, steps):
+            batch = {k: to_tensor(v, dev)
+                     for k, v in data_gen(step).items()}
+            if fail_at_step is not None and step == fail_at_step:
+                err = WorkerFailure(f"injected failure at step {step}")
+                err.last_step = step
+                raise err
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            if hb:
+                hb.beat(step)
+            if ckpt_dir and (step + 1) % ckpt_every == 0:
+                ck.save(ckpt_dir, state, step=step + 1)
+            if verbose and step % 10 == 0:
+                print(f"[train] step {step} loss {losses[-1]:.4f} "
+                      f"({(time.time() - t0):.1f}s)", flush=True)
+    finally:
+        ck.wait()
+    if ckpt_dir:
+        ck.save(ckpt_dir, state, step=steps)
+        ck.wait()
+    return {"losses": losses, "final_step": steps,
+            "wall_s": time.time() - t0, "state": state}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="sasrec")
+    ap.add_argument("--shape", default="train_batch")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--ckpt-dir")
+    ap.add_argument("--scale", default="tiny", choices=["tiny", "full"])
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--device", default="cuda",
+                    help="where the model trains (cuda or cpu)")
+    args = ap.parse_args(argv)
+    hist = train_loop(args.arch, args.shape, steps=args.steps,
+                      ckpt_dir=args.ckpt_dir, scale=args.scale, lr=args.lr,
+                      device=args.device)
+    print(f"final loss {hist['losses'][-1]:.4f} after {args.steps} steps "
+          f"in {hist['wall_s']:.1f}s")
+
+
+if __name__ == "__main__":
+    main()

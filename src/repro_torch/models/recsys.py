@@ -13,6 +13,12 @@ Parameters live in one `nn.Module` per kind (`DLRM`, `DCNv2`, `WideDeep`,
 across from the JAX package's parameter pytree by
 `recsys_params_from_jax`. Tables keep the reference's padding
 (`padded_vocab`) and its published cardinalities.
+
+`rec_loss` is differentiable. Every table read goes through `lookup`,
+whose gradient to the table is a sparse COO tensor of the rows read, so
+training never holds a dense (V, D) table gradient (the reference's
+`jnp.take` gives one); `repro_torch.optim.adamw` updates the touched
+rows only. The serving functions run without autograd.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from repro_torch.configs import RecsysConfig
 from repro_torch.cudagraph import Graph, warm_up
@@ -42,10 +49,25 @@ def padded_vocab(v: int) -> int:
     return max(VOCAB_PAD, (v + VOCAB_PAD - 1) // VOCAB_PAD * VOCAB_PAD)
 
 
+def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table (V, D), idx (...) int -> (..., D). Under autograd the table's
+    gradient is a sparse COO tensor of the rows read (duplicates kept; the
+    optimizer sums them): the dense (V, D) gradient of plain indexing
+    would double a table's footprint (DLRM-rm2: 48 GB more). Without
+    autograd it is the plain gather, the same values: `F.embedding`'s
+    gather made Wide&Deep's 262,144-row CTR forward 31% slower on the card
+    (PERF.md §6)."""
+    idx = idx.long()
+    if torch.is_grad_enabled() and table.requires_grad:
+        return F.embedding(idx, table, sparse=True)
+    return table[idx]
+
+
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
                   combiner: str = "sum") -> torch.Tensor:
-    """table (V, D), idx (..., hot) int -> (..., D)."""
-    e = table[idx.long()]                     # (..., hot, D)
+    """table (V, D), idx (..., hot) int -> (..., D); in training the
+    table's gradient is sparse (`lookup`)."""
+    e = lookup(table, idx)                    # (..., hot, D)
     if combiner == "sum":
         return e.sum(dim=-2)
     if combiner == "mean":
@@ -132,7 +154,7 @@ class SASRec(Recsys):
         D = self.pos.shape[1]
         # sqrt(D) rounded to float32, as the reference divides by it
         inv = float(np.sqrt(np.float32(D)))
-        x = self.tables[0][seq.long()] + self.pos[None, :S]
+        x = lookup(self.tables[0], seq) + self.pos[None, :S]
         mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
                                      device=x.device))
         for b in self.blocks:
@@ -264,6 +286,11 @@ def sasrec_hidden(p: SASRec, seq: torch.Tensor, cfg: RecsysConfig
 def rec_forward(p: Recsys, batch: Dict, cfg: RecsysConfig) -> torch.Tensor:
     """CTR forward -> logits (B,). batch: dense (B, n_dense) f32, sparse
     (B, n_sparse, multi_hot) ids; SASRec: seq (B, S), target (B,)."""
+    return _ctr_logits(p, batch, cfg)
+
+
+def _ctr_logits(p: Recsys, batch: Dict, cfg: RecsysConfig) -> torch.Tensor:
+    """`rec_forward` without its no_grad, for `rec_loss`."""
     full_fp32()
     if cfg.kind == "dlrm":
         d = mlp_apply(p.bot, _batch(p, batch, "dense"), final_act=True)
@@ -293,32 +320,35 @@ def rec_forward(p: Recsys, batch: Dict, cfg: RecsysConfig) -> torch.Tensor:
         return deep + wide
     if cfg.kind == "sasrec":
         h = sasrec_hidden(p, _batch(p, batch, "seq"), cfg)     # (B, S, D)
-        tgt = p.tables[0][_batch(p, batch, "target")]          # (B, D)
+        tgt = lookup(p.tables[0], _batch(p, batch, "target"))  # (B, D)
         return torch.einsum("bd,bd->b", h[:, -1], tgt)
     raise ValueError(cfg.kind)
 
 
-@torch.no_grad()
 def rec_loss(p: Recsys, batch: Dict, cfg: RecsysConfig):
-    """The training loss's forward value and its aux metrics (no
-    backward): SASRec's next-item BCE with one sampled negative per
-    position, the CTR kinds' logistic loss against `batch["label"]`."""
+    """The training loss and its aux metrics (detached): SASRec's
+    next-item BCE with one sampled negative per position, the CTR kinds'
+    logistic loss against `batch["label"]`. Differentiable: every table
+    read (SASRec's item table three ways: the sequence, `pos_items` and
+    `neg_items`) gives its table a sparse gradient."""
+    full_fp32()
     if cfg.kind == "sasrec":
         h = sasrec_hidden(p, _batch(p, batch, "seq"), cfg)     # (B, S, D)
-        pos = p.tables[0][_batch(p, batch, "pos_items")]
-        neg = p.tables[0][_batch(p, batch, "neg_items")]
+        pos = lookup(p.tables[0], _batch(p, batch, "pos_items"))
+        neg = lookup(p.tables[0], _batch(p, batch, "neg_items"))
         sp = torch.einsum("bsd,bsd->bs", h, pos)
         sn = torch.einsum("bsd,bsd->bs", h, neg)
         m = to_tensor(batch["seq_mask"], p.device, torch.float32)
         loss = -(torch.log(torch.sigmoid(sp) + 1e-9)
                  + torch.log(1 - torch.sigmoid(sn) + 1e-9))
         denom = m.sum().clamp_min(1.0)
-        return (loss * m).sum() / denom, {"pos_score": (sp * m).sum() / denom}
-    logits = rec_forward(p, batch, cfg)
+        return (loss * m).sum() / denom, \
+            {"pos_score": ((sp * m).sum() / denom).detach()}
+    logits = _ctr_logits(p, batch, cfg)
     y = to_tensor(batch["label"], p.device, torch.float32)
     loss = torch.mean(logits.clamp_min(0) - logits * y
                       + torch.log1p(torch.exp(-logits.abs())))
-    return loss, {"mean_logit": logits.mean()}
+    return loss, {"mean_logit": logits.mean().detach()}
 
 
 # ---------------------------------------------------------------------------

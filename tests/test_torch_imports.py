@@ -61,6 +61,11 @@ STORAGE_MODULES = ("obs", "obs.metrics", "obs.trace", "core.adc",
                    "serving", "serving.service", "serving.protocol",
                    "serving.router", "serving.cluster")
 
+#: the modules of the recommender training slice
+TRAIN_MODULES = ("data.pipeline", "optim", "optim.adamw", "checkpoint",
+                 "checkpoint.ckpt", "distributed", "distributed.train_step",
+                 "distributed.fault_tolerance", "launch.train")
+
 _BLOCKER = """
 import importlib, json, sys
 class _Blocked:
@@ -85,7 +90,7 @@ def blocked_imports():
     """One process where any import of jax or repro raises imports each
     storage module in turn: module -> 'ok' or the error."""
     code = _BLOCKER.format(forbidden=set(FORBIDDEN),
-                           modules=STORAGE_MODULES)
+                           modules=STORAGE_MODULES + TRAIN_MODULES)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -97,6 +102,39 @@ def blocked_imports():
 def test_storage_modules_import_with_jax_and_repro_blocked(blocked_imports,
                                                            module):
     assert blocked_imports[module] == "ok"
+
+
+@pytest.mark.parametrize("module", TRAIN_MODULES)
+def test_train_modules_import_with_jax_and_repro_blocked(blocked_imports,
+                                                         module):
+    assert blocked_imports[module] == "ok"
+
+
+def test_train_entry_points_need_a_card_or_device_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points run on it")
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.pipeline import Prefetcher
+    from repro_torch.distributed import train_step as ts
+    from repro_torch.launch import train
+    ckpt.save(str(tmp_path), {"a": torch.ones(2)}, step=1)
+    calls = [
+        lambda **kw: train.build_trainer("dcn-v2", "train_batch", **kw),
+        lambda **kw: train.train_loop("dcn-v2", "train_batch", steps=1,
+                                      verbose=False, **kw),
+        lambda **kw: Prefetcher(lambda s: {"x": np.ones(2)}, **kw).stop(),
+        lambda **kw: ckpt.restore(str(tmp_path), {"a": torch.ones(2)}, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        call(device="cpu")
+    _, init, _, _ = train.build_trainer("dcn-v2", "train_batch",
+                                        device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ts.state_to(init())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "dcn-v2", "--steps", "1"])
 
 
 def test_kernel_modules_import_without_building():

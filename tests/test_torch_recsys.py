@@ -112,10 +112,14 @@ def test_init_recsys_matches_jax_shapes_and_scales(model):
         theirs = np.asarray(theirs)
         assert np.abs(mine).max() <= 2 * scale * (1 + 1e-6)
         assert abs(mine.std() - theirs.std()) <= 0.1 * theirs.std()
-    # a seed gives the same parameters again
+    # a seed gives the same parameters again, bit for bit (compared with
+    # zero tolerance by assert_close, whose message names the mismatched
+    # elements and the largest difference)
     again = recsys.init_recsys(CFG, generator=torch.Generator().manual_seed(0),
                                device="cpu")
-    assert torch.equal(again.tables[0], p.tables[0])
+    for (name, a), b in zip(p.named_parameters(), again.parameters()):
+        torch.testing.assert_close(b, a, rtol=0, atol=0, msg=lambda m:
+                                   f"{name}: {m}")
 
 
 def test_truncnorm_init_distribution():
