@@ -94,13 +94,13 @@ non-zero):
  12. `[serve_launch]`: `repro_torch.launch.serve.main` on the card over
      its demo index: QPS and latency as it prints them;
  13. `[dynamic]`: `DynamicHostIndex(device="cuda")` over a copy of the
-     10k index: 512 held-out vectors of the same distribution inserted
+     10k index: 256 held-out vectors of the same distribution inserted
      while 3 reader threads search (L=256, k=10) the whole time, taking
      turns with the inserts at the process's search gate; inserts/s,
      insert p50/p99, reader QPS, the path's launches of every kernel
      (`fused_hop_f32` and `pq_lut` required), the peak device bytes of
      one reader search; then 64 labels deleted, filtered searches (no
-     tombstoned label), flush, reload (n = 10,512, no CRC mismatch),
+     tombstoned label), flush, reload (n = 10,256, no CRC mismatch),
      recall@10 over the live grown set (the deleted vectors left out of
      the ground truth, no deleted label in the results) and
      self-recall@1 of the live inserts (>= 0.8 each), and `compact` to a
@@ -160,7 +160,39 @@ non-zero):
      dense table gradient), rows touched a step, finite losses, the bound
      of a step's float32 matrix products; tiny SASRec restarted after a
      WorkerFailure at step 6 from its step-4 checkpoint, the final state
-     bit-equal to an uninterrupted run's; no port kernel launched.
+     bit-equal to an uninterrupted run's; no port kernel launched;
+ 21. `[lm_parity]`: the five LM archs at `reduced_lm` scale, float32,
+     TF32 off, the same parameters (drawn on the CPU) on the CPU and the
+     card: `lm_prefill` logits, 9 `lm_decode_step` logits, `lm_loss` and
+     every gradient within TOL_LM_PARITY; `flash_attention` and
+     `flash_attention_vjp` (full, sliding and chunked masks, Sq = 300 with
+     64/128 and 128/64 blocks, q offsets 0 and 37) within TOL_FLASH_FWD
+     forward and TOL_FLASH_GRAD for the gradients;
+ 22. `[lm_serve]`: bfloat16, random weights drawn on the card, full
+     width: qwen3-1.7b at all 28 layers serving 8 requests (128-token
+     prompts fed through `lm_decode_step`, 32 greedy tokens; decode p50 /
+     p99, tokens/s, peak bytes against the parameters), `lm_prefill` at
+     prefill_32k's 32,768 tokens (batch cut to 1) and one decode step at
+     decode_32k's T = 32,768 (batch cut to 8, a 30.1 GB cache of seeded
+     draws), each beside its bound; float32 at full width, 16 decode
+     steps against the prefill within TOL_DECODE_PREFILL; one layer's
+     attention at 8,192 tokens beside `scaled_dot_product_attention` (a
+     library yardstick only); then qwen2-1.5b, h2o-danube-1.8b (prefill
+     at 8,192 tokens, past its 4,096 window), qwen2-moe-a2.7b (dropped
+     pair shares) and llama4-scout-17b-a16e cut to SCOUT_LAYERS layers
+     (width kept; prefill at 16,384 tokens, two local chunks), each 4
+     requests (64-token prompts, 16 new tokens), prefill ms, decode p50,
+     peak bytes, finite logits;
+ 23. `[lm_train]`: the LM trainer on the card: tiny_lm (qwen3-1.7b's, 4
+     layers, float32) 3 steps of the launcher's default schedule on the
+     card and on the CPU from one state within TOL_LM_PARITY (and the
+     first step's gradients, relative to the largest); 25 steps at lr 1e-2, the last loss below the
+     first; a restart after a WorkerFailure at step 6 from the step-4
+     checkpoint, bit-equal; qwen3-1.7b at full width (bfloat16, float32
+     master weights) on train_4k's 4,096 tokens at batch 4 (cut from
+     256), 4 steps: step p50 beside 6 N tokens plus the attention's
+     products at 989 TFLOP/s, peak bytes against parameters and optimizer
+     state; no port kernel launched. Every LM line carries the card line.
 Each path's launch counts are reset just before it and read just after;
 the kernels line gives the main path's as `launches`, the storage
 path's as `launches_storage`, the dynamic index's (inserts and readers)
@@ -1662,7 +1694,9 @@ def phase_serve_launch():
 # the write half: dynamic index, crash drill, service, cluster
 # ---------------------------------------------------------------------------
 
-DYN_INSERTS = 512        # held-out vectors inserted into the 10k index
+# held-out vectors inserted into the 10k index (cut from 512: on a slow
+# host the whole script neared the 1,200 s a run may take)
+DYN_INSERTS = 256
 DYN_READERS = 3
 DYN_DELETES = 64
 DYN_KERNELS = ("fused_hop_f32", "pq_lut")
@@ -1701,7 +1735,7 @@ def percentiles_ms(seconds) -> dict:
 
 def phase_dynamic(arrays, queries, root):
     """`DynamicHostIndex(device="cuda")` over a copy of the 10k index:
-    512 held-out vectors inserted while 3 reader threads search (L=256,
+    256 held-out vectors inserted while 3 reader threads search (L=256,
     k=10) the whole time (launch counts reset just before, read just
     after); then 64 labels deleted, filtered searches, flush, reload, and
     `compact` to a sibling directory searched on the card and on the CPU.
@@ -3498,6 +3532,591 @@ def phase_train(root: str):
     return full
 
 
+# ---------------------------------------------------------------------------
+# the language models (`repro_torch.models.{layers,moe,transformer}`)
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("qwen3-1.7b", "h2o-danube-1.8b", "qwen2-1.5b",
+            "qwen2-moe-a2.7b", "llama4-scout-17b-a16e")
+BF16_OPS_PER_S = 989e12         # bfloat16 tensor cores, dense
+TOL_LM_PARITY = 1e-4            # card vs CPU: logits, loss, gradients
+TOL_FLASH_FWD = 1e-5            # flash attention card vs CPU, forward
+TOL_FLASH_GRAD = 1e-4           # and its gradients
+TOL_DECODE_PREFILL = 2e-3       # tests/test_models_lm.py's bar
+SCOUT_LAYERS = 8                # of 48: 215.5 GB does not fit in 80 GB
+
+
+def reduced_lm(cfg):
+    """tests/test_smoke_archs.py's `reduced_lm`: every structural feature
+    kept (GQA ratio, qk-norm, QKV bias, windows, shared + routed experts),
+    MoE cut to 8 experts, Scout to 4 layers (layer 3 global)."""
+    import dataclasses
+    moe = cfg.moe
+    if moe is not None:
+        moe = dataclasses.replace(moe, n_experts=min(8, moe.n_experts),
+                                  d_expert=64,
+                                  d_shared=64 if moe.d_shared else 0)
+    return cfg.scaled(n_layers=4 if cfg.attention == "chunked_global" else 2,
+                      d_model=64, n_heads=max(2, cfg.n_heads // 8),
+                      n_kv_heads=max(1, cfg.n_kv_heads // 8), head_dim=16,
+                      d_ff=96, vocab_size=512,
+                      window=min(cfg.window, 32) if cfg.window else 0,
+                      moe=moe, dtype="float32")
+
+
+def max_diff(a, b) -> float:
+    return float((a.detach().float().cpu() - b.detach().float().cpu())
+                 .abs().max())
+
+
+def lm_model_parity(aid: str, card: str) -> dict:
+    """One arch at `reduced_lm` scale, float32: the same parameters (drawn
+    on the CPU) on the CPU and the card; prefill logits, 9 decode steps'
+    logits, the loss and every gradient."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import param_tree
+    cfg = reduced_lm(get_arch(aid).model)
+    cpu = T.init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                    device="cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, 1)}
+    errs = {"prefill": max_diff(T.lm_prefill(cpu, toks, cfg),
+                                T.lm_prefill(gpu, toks, cfg))}
+    cc = T.init_cache(cfg, 2, 16, device="cpu")
+    cg = T.init_cache(cfg, 2, 16, device="cuda")
+    dec = 0.0
+    for t in range(9):
+        lc, cc = T.lm_decode_step(cpu, cc, toks[:, t], t, cfg)
+        lg, cg = T.lm_decode_step(gpu, cg, toks[:, t], t, cfg)
+        dec = max(dec, max_diff(lc, lg))
+    errs["decode"] = dec
+    grads = []
+    for p in (cpu, gpu):
+        loss, _ = T.lm_loss(p, batch, cfg)
+        tree = param_tree(p)
+        gs = torch.autograd.grad(loss, list(tree.values()))
+        grads.append((loss, dict(zip(tree, gs))))
+    errs["loss"] = max_diff(grads[0][0], grads[1][0])
+    errs["grads"] = max(max_diff(g, grads[1][1][n])
+                        for n, g in grads[0][1].items())
+    out = dict(arch=aid, layers=cfg.n_layers, leaves=len(grads[0][1]),
+               **{f"{k}_err": f"{v:.3e}" for k, v in errs.items()},
+               tol=TOL_LM_PARITY, card=json.dumps(card))
+    log("lm_parity", **out)
+    require(max(errs.values()) <= TOL_LM_PARITY,
+            f"{aid}: card and CPU differ by {errs}")
+    return errs
+
+
+def flash_parity(card: str) -> float:
+    """flash_attention and flash_attention_vjp on the card against their
+    CPU runs: full, sliding (window 100) and chunked (chunk 128) masks,
+    Sq = 300 (a partial last q block), 64/128 and 128/64 blocks, q
+    offsets 0 and 37 (keys then the 337 positions before and of the
+    queries), GQA 8 query heads over 2 KV heads."""
+    import torch
+    from repro_torch.models import layers as L
+    worst = 0.0
+    rng = np.random.default_rng(2)
+    for name, window, chunked in (("full", 0, False), ("sliding", 100, False),
+                                  ("chunked", 128, True)):
+        for bq, bk in ((64, 128), (128, 64)):
+            for off in (0, 37):
+                Sq, Skv = 300, 300 + off
+                q = torch.from_numpy(rng.normal(size=(2, Sq, 8, 64))
+                                     .astype(np.float32))
+                k = torch.from_numpy(rng.normal(size=(2, Skv, 2, 64))
+                                     .astype(np.float32))
+                v = torch.from_numpy(rng.normal(size=(2, Skv, 2, 64))
+                                     .astype(np.float32))
+                do = torch.from_numpy(rng.normal(size=(2, Sq, 8, 64))
+                                      .astype(np.float32))
+                res = []
+                for dev in ("cpu", "cuda"):
+                    qq, kk, vv = (x.to(dev).requires_grad_()
+                                  for x in (q, k, v))
+                    fwd = L.flash_attention(qq.detach(), kk.detach(),
+                                            vv.detach(), window=window,
+                                            chunked=chunked, block_q=bq,
+                                            block_kv=bk, q_offset=off)
+                    o = L.flash_attention_vjp(qq, kk, vv, off, True, window,
+                                              chunked, bq, bk)
+                    gs = torch.autograd.grad(o, (qq, kk, vv), do.to(dev))
+                    res.append((fwd, o, gs))
+                ef = max(max_diff(res[0][0], res[1][0]),
+                         max_diff(res[0][1], res[1][1]))
+                eg = max(max_diff(a, b) for a, b in zip(res[0][2],
+                                                        res[1][2]))
+                log("lm_parity", check="flash", mask=name, block_q=bq,
+                    block_kv=bk, q_offset=off, sq=Sq, skv=Skv,
+                    fwd_err=f"{ef:.3e}", grad_err=f"{eg:.3e}",
+                    tol_fwd=TOL_FLASH_FWD, tol_grad=TOL_FLASH_GRAD,
+                    card=json.dumps(card))
+                require(ef <= TOL_FLASH_FWD and eg <= TOL_FLASH_GRAD,
+                        f"flash {name} {bq}/{bk} off {off}: {ef}, {eg}")
+                worst = max(worst, ef)
+    return worst
+
+
+def phase_lm_parity(card: str):
+    """[lm_parity]: float32, TF32 off. Each LM arch at reduced scale, card
+    against CPU, then the attention alone."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for aid in LM_ARCHS:
+        lm_model_parity(aid, card)
+    flash_parity(card)
+
+
+def param_bytes(p) -> int:
+    return sum(t.numel() * t.element_size() for t in p.parameters())
+
+
+def cuda_ms(fn, reps: int = 1) -> float:
+    """Wall ms of fn() from CUDA events, the mean of `reps` calls after
+    one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def serve_requests(p, cfg, n: int, prompt: int, new: int, seed: int):
+    """n requests: each prompt fed a token a step through `lm_decode_step`
+    (the reference's serving path has no cache-filling prefill), then
+    `new` greedy tokens. Per-step seconds and whether the last logits
+    are finite."""
+    import torch
+    from repro_torch.models import transformer as T
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (n, prompt))
+                            .astype(np.int64)).cuda()
+    cache = T.init_cache(cfg, n, prompt + new)
+    lat, logits = [], None
+    for t in range(prompt + new):
+        tok = toks[:, t] if t < prompt else logits.argmax(-1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = T.lm_decode_step(p, cache, tok, t, cfg)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    finite = bool(torch.isfinite(logits).all())
+    del cache
+    return lat, finite
+
+
+def prefill_bound_ms(cfg, B: int, S: int) -> float:
+    """(2 N tokens + 2 B S^2 H hd L) / 989 TFLOP/s: the weights' products
+    and causal attention (half of QK^T and of PV). N counts the
+    parameters a token touches (an MoE's routed top-k, not every
+    expert)."""
+    ops = 2 * cfg.n_active_params() * B * S \
+        + 2 * B * S * S * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    return ops / BF16_OPS_PER_S * 1e3
+
+
+def lm_init(cfg, seed: int = 0):
+    import torch
+    from repro_torch.models import transformer as T
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = T.init_lm(cfg, generator=torch.Generator("cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    return p, time.perf_counter() - t0
+
+
+def fresh_peak():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def serve_qwen3(card: str) -> dict:
+    """qwen3-1.7b at all 28 layers, bfloat16, random weights drawn on the
+    card: 8 requests (128-token prompts, 32 greedy tokens); prefill at
+    prefill_32k's 32,768 tokens (batch cut from 32 to 1); one decode step
+    against decode_32k's T = 32,768 (batch cut from 128 to 8; the cache
+    filled by a seeded draw); then float32 decode against prefill."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = get_arch("qwen3-1.7b").model
+    base = fresh_peak()
+    p, init_s = lm_init(cfg)
+    pb = param_bytes(p)
+    lat, finite = serve_requests(p, cfg, 8, 128, 32, seed=3)
+    peak = torch.cuda.max_memory_allocated() - base
+    gen_s = sum(lat[127:159])        # the steps whose logits gave the 32
+    out = dict(arch="qwen3-1.7b", layers=cfg.n_layers,
+               params=cfg.n_params(), param_bytes=pb,
+               init_s=f"{init_s:.2f}", requests=8, prompt=128, new=32,
+               decode_steps=len(lat),
+               **{f"decode_{k}": v for k, v in
+                  percentiles_ms(lat[1:]).items()},
+               gen_tokens_per_s=f"{8 * 32 / gen_s:.1f}",
+               tokens_per_s=f"{8 * len(lat) / sum(lat):.1f}",
+               serve_peak_bytes=peak, peak_over_params=f"{peak / pb:.4f}",
+               bf16_route=L.bf16_bmm_route(torch.device("cuda")),
+               finite=finite, card=json.dumps(card))
+    log("lm_serve", check="requests", **out)
+    require(finite, "qwen3-1.7b: non-finite logits")
+    # prefill_32k, batch 1
+    S = 32768
+    toks = torch.randint(0, cfg.vocab_size, (1, S), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(4))
+    T.lm_prefill(p, toks[:, :1024], cfg)               # warm-up
+    fresh_peak()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = T.lm_prefill(p, toks, cfg)
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    b_ms = prefill_bound_ms(cfg, 1, S)
+    log("lm_serve", check="prefill_32k", arch="qwen3-1.7b", batch=1,
+        batch_cut_from=32, seq=S, ms=f"{pre_ms:.1f}", bound_ms=f"{b_ms:.1f}",
+        bound_by="operations", share_of_bound=f"{b_ms / pre_ms:.4f}",
+        peak_bytes=torch.cuda.max_memory_allocated() - base,
+        finite=bool(torch.isfinite(logits).all()), card=json.dumps(card))
+    require(bool(torch.isfinite(logits).all()), "prefill_32k: not finite")
+    del toks, logits
+    # decode_32k, batch 8: one step at the last position of a full cache
+    B, Tn = 8, 32768
+    fresh_peak()
+    cache = T.init_cache(cfg, B, Tn)
+    g = torch.Generator("cuda").manual_seed(5)
+    for t in (cache.k, cache.v):
+        for li in range(cfg.n_layers):
+            t[li].normal_(generator=g)
+    cache_bytes = 2 * cache.k.numel() * cache.k.element_size()
+    tok = torch.randint(0, cfg.vocab_size, (B,), device="cuda", generator=g)
+    dec_ms = cuda_ms(lambda: T.lm_decode_step(p, cache, tok, Tn - 1, cfg),
+                     reps=5)
+    logits, _ = T.lm_decode_step(p, cache, tok, Tn - 1, cfg)
+    bound = (cache_bytes + pb) / HBM_BYTES_PER_S * 1e3
+    log("lm_serve", check="decode_32k", arch="qwen3-1.7b", batch=B,
+        batch_cut_from=128, cache_len=Tn, cache_bytes=cache_bytes,
+        ms=f"{dec_ms:.3f}", bound_ms=f"{bound:.3f}", bound_by="bytes",
+        share_of_bound=f"{bound / dec_ms:.4f}",
+        peak_bytes=torch.cuda.max_memory_allocated() - base,
+        finite=bool(torch.isfinite(logits).all()), card=json.dumps(card))
+    require(bool(torch.isfinite(logits).all()), "decode_32k: not finite")
+    del cache, logits, p
+    # float32 at full width: decode must reproduce prefill
+    fresh_peak()
+    cfg32 = cfg.scaled(dtype="float32")
+    p32, _ = lm_init(cfg32, seed=6)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(7))
+    pre = T.lm_prefill(p32, toks, cfg32)
+    cache = T.init_cache(cfg32, 2, 16)
+    for t in range(16):
+        last, cache = T.lm_decode_step(p32, cache, toks[:, t], t, cfg32)
+    err = max_diff(pre, last)
+    rel = float(((pre - last).abs() / (2e-3 + 2e-3 * last.abs())).max())
+    log("lm_serve", check="decode_vs_prefill", arch="qwen3-1.7b",
+        dtype="float32", param_bytes=param_bytes(p32), prompt=16,
+        max_abs_diff=f"{err:.3e}", rtol=TOL_DECODE_PREFILL,
+        atol=TOL_DECODE_PREFILL, worst_share_of_tol=f"{rel:.4f}",
+        card=json.dumps(card))
+    require(rel <= 1.0, f"qwen3-1.7b float32: decode vs prefill {err}")
+    del p32, cache
+    return out
+
+
+def attention_times(card: str):
+    """One qwen3-1.7b layer's causal attention at 8,192 tokens, bfloat16:
+    the port's blockwise attention (float32 accumulation) against one
+    `scaled_dot_product_attention` call (a library yardstick, not on the
+    path) and the bound of its products at 989 TFLOP/s."""
+    import torch
+    from torch.nn import functional as F
+    from repro_torch.models import layers as L
+    B, S, H, KVH, hd = 1, 8192, 16, 8, 128
+    g = torch.Generator("cuda").manual_seed(8)
+    q = torch.randn((B, S, H, hd), device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    k = torch.randn((B, S, KVH, hd), device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    v = torch.randn((B, S, KVH, hd), device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    port = cuda_ms(lambda: L.flash_attention(q, k, v), reps=3)
+    qt, kt, vt = (x.transpose(1, 2) for x in
+                  (q, k.repeat_interleave(H // KVH, 2),
+                   v.repeat_interleave(H // KVH, 2)))
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=True),
+                  reps=3)
+    ref = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    err = max_diff(L.flash_attention(q, k, v), ref.transpose(1, 2))
+    bound = 2 * B * S * S * H * hd / BF16_OPS_PER_S * 1e3
+    log("lm_serve", check="attention", shape=compact([B, S, H, KVH, hd]),
+        dtype="bfloat16", ms=f"{port:.3f}", sdpa_ms=f"{lib:.3f}",
+        bound_ms=f"{bound:.3f}", bound_by="operations",
+        max_abs_diff_vs_sdpa=f"{err:.3e}",
+        bf16_route=L.bf16_bmm_route(torch.device("cuda")),
+        card=json.dumps(card))
+
+
+def serve_other(aid: str, card: str, prefill_tokens: int = 0) -> dict:
+    """One more arch at full width, bfloat16 (Scout cut to SCOUT_LAYERS
+    layers, width kept): 4 requests (64-token prompts, 16 new tokens),
+    then a prefill: of the 4 prompts, or of `prefill_tokens` tokens at
+    batch 1. MoE archs also report the dropped (token, expert) pairs."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.moe import count_drops
+    cfg = get_arch(aid).model
+    cut = ""
+    if aid == "llama4-scout-17b-a16e":
+        cut = f"layers {cfg.n_layers}->{SCOUT_LAYERS}, width kept"
+        cfg = cfg.scaled(n_layers=SCOUT_LAYERS)
+    base = fresh_peak()
+    p, init_s = lm_init(cfg)
+    pb = param_bytes(p)
+    with count_drops() as dec_drops:
+        lat, finite = serve_requests(p, cfg, 4, 64, 16, seed=9)
+    g = torch.Generator("cuda").manual_seed(10)
+    if prefill_tokens:
+        toks = torch.randint(0, cfg.vocab_size, (1, prefill_tokens),
+                             device="cuda", generator=g)
+    else:
+        toks = torch.randint(0, cfg.vocab_size, (4, 64), device="cuda",
+                             generator=g)
+    T.lm_prefill(p, toks[:, :64], cfg)                  # warm-up
+    with count_drops() as pre_drops:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = T.lm_prefill(p, toks, cfg)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    fin = finite and bool(torch.isfinite(logits).all())
+    out = dict(arch=aid, layers=cfg.n_layers, params=cfg.n_params(),
+               param_bytes=pb, init_s=f"{init_s:.2f}", requests=4,
+               prompt=64, new=16,
+               **{f"decode_{k}": v for k, v in
+                  percentiles_ms(lat[1:]).items()},
+               prefill_batch=toks.shape[0], prefill_seq=toks.shape[1],
+               prefill_ms=f"{pre_ms:.1f}",
+               prefill_bound_ms=f"{prefill_bound_ms(cfg, *toks.shape):.1f}",
+               peak_bytes=peak, peak_over_params=f"{peak / pb:.4f}",
+               finite=fin)
+    if cfg.moe is not None:
+        for name, d in (("decode", dec_drops), ("prefill", pre_drops)):
+            dropped = int(sum(int(x) for x, _ in d))
+            routed = sum(n for _, n in d)
+            out[f"{name}_dropped_pairs"] = f"{dropped}/{routed}"
+            out[f"{name}_dropped_share"] = f"{dropped / routed:.4f}"
+    if cut:
+        out["cut"] = json.dumps(cut)
+    log("lm_serve", **out, card=json.dumps(card))
+    require(fin, f"{aid}: non-finite logits")
+    del p, logits
+    return out
+
+
+def phase_lm_serve(card: str):
+    """[lm_serve]: the five LM archs at full width on the card, bfloat16."""
+    from repro_torch.kernels import _build
+    _build.reset_launch_counts()
+    full = [serve_qwen3(card)]
+    attention_times(card)
+    full.append(serve_other("qwen2-1.5b", card))
+    full.append(serve_other("h2o-danube-1.8b", card, prefill_tokens=8192))
+    full.append(serve_other("qwen2-moe-a2.7b", card))
+    full.append(serve_other("llama4-scout-17b-a16e", card,
+                            prefill_tokens=16384))
+    launches = sum(_build.launch_counts.values())
+    log("lm_serve", kernel_launches=launches, card=json.dumps(card))
+    require(launches == 0, "the LM path launched a port kernel")
+    return full
+
+
+def lm_train_parity(card: str):
+    """tiny_lm (qwen3-1.7b's, float32), the launcher's default schedule
+    (100 steps: lr warms up over 10): 3 steps on the card and on the CPU
+    from one state drawn on the CPU; the largest parameter difference
+    after each step, and the first step's gradients.
+
+    Why not a 3-step schedule, as `[train]` runs the towers: its first
+    step takes lr 2.3e-3, and Adam's first step moves each element by
+    lr * g / (|g| + 1e-8). An element whose gradient sums cancel to ~1e-8
+    (the float32 noise floor of sums of ~1e-2 terms) then moves by a
+    share of lr that the last bits decide: 2.4e-4 apart on the card and
+    the CPU (PERF.md §6) while every gradient agreed to 1.8e-8 of 2.4e-2."""
+    import torch
+    from repro_torch.distributed.train_step import _grads, make_loss_fn, \
+        state_to
+    from repro_torch.launch import train
+    arch, init, cpu_step, data = train.build_trainer(
+        "qwen3-1.7b", "train_4k", device="cpu")
+    _, _, card_step, _ = train.build_trainer("qwen3-1.7b", "train_4k",
+                                             device="cuda")
+    cpu = init(torch.Generator().manual_seed(0))
+    gpu = state_to(cpu, "cuda")
+    loss_fn = make_loss_fn(arch, arch.shape("train_4k"))
+    b = data(0)
+    gc = _grads(loss_fn, cpu.params, b)[2]
+    gg = _grads(loss_fn, gpu.params, b)[2]
+    g_err = max(max_diff(g, gg[n]) / float(g.abs().max())
+                for n, g in gc.items())
+    diffs, losses = [], []
+    for step in range(3):
+        b = data(step)
+        cpu, mc = cpu_step(cpu, b)
+        gpu, mg = card_step(gpu, b)
+        diffs.append(max_param_diff(cpu, gpu))
+        losses.append((float(mc["loss"]), float(mg["loss"])))
+    log("lm_train", check="parity", arch="qwen3-1.7b", scale="tiny_lm",
+        steps=3, schedule_steps=100,
+        grad_err_over_max_grad=f"{g_err:.3e}",
+        max_param_diff=compact([f"{d:.3e}" for d in diffs]),
+        tol=TOL_LM_PARITY, loss_cpu_card=compact(losses),
+        card=json.dumps(card))
+    require(max(diffs) <= TOL_LM_PARITY,
+            f"tiny LM: card and CPU parameters differ by {max(diffs)}")
+    return init
+
+
+def lm_train_curve(init, card: str):
+    """tiny_lm, 25 steps at lr 1e-2 on the card from the CPU's seed-0
+    state: the last loss below the first."""
+    import torch
+    from repro_torch.distributed.train_step import state_to
+    from repro_torch.launch import train
+    state = state_to(init(torch.Generator().manual_seed(0)), "cuda")
+    losses = train.train_loop("qwen3-1.7b", "train_4k", steps=25, lr=1e-2,
+                              verbose=False, device="cuda",
+                              init_state=state)["losses"]
+    log("lm_train", check="loss_curve", arch="qwen3-1.7b", scale="tiny_lm",
+        steps=25, lr=1e-2, first=f"{losses[0]:.5f}",
+        last=f"{losses[-1]:.5f}",
+        losses=compact([f"{x:.4f}" for x in losses]), card=json.dumps(card))
+    require(losses[-1] < losses[0], "tiny LM: the loss did not fall")
+
+
+def lm_train_restart(root: str, card: str):
+    """tiny_lm on the card: 10 steps with a checkpoint every 4 and a
+    WorkerFailure at step 6, resumed from step 4; the final state
+    bit-equal to an uninterrupted run's."""
+    import torch
+    from repro_torch.checkpoint.ckpt import _flatten
+    from repro_torch.distributed.fault_tolerance import run_with_restarts
+    from repro_torch.launch import train
+    kw = dict(steps=10, ckpt_every=4, verbose=False, device="cuda")
+    whole = train.train_loop("qwen3-1.7b", "train_4k", **kw)
+    ckpt_dir = os.path.join(root, "lm_train_restart")
+    resumed = []
+
+    def segment(resume_step):
+        resumed.append(resume_step)
+        hist = train.train_loop("qwen3-1.7b", "train_4k", ckpt_dir=ckpt_dir,
+                                fail_at_step=6 if len(resumed) == 1
+                                else None, **kw)
+        segment.hist = hist
+        return hist["final_step"]
+
+    final = run_with_restarts(segment, max_restarts=1)
+    a, b = _flatten(whole["state"]), _flatten(segment.hist["state"])
+    equal = list(a) == list(b) and all(torch.equal(a[n], b[n]) for n in a)
+    log("lm_train", check="restart", arch="qwen3-1.7b", scale="tiny_lm",
+        steps=10, ckpt_every=4, failed_at=6, restarts=len(resumed) - 1,
+        resumed_losses=len(segment.hist["losses"]), final_step=final,
+        leaves=len(a), bit_equal=equal, card=json.dumps(card))
+    require(final == 10 and resumed == [None, 6]
+            and len(segment.hist["losses"]) == 6,
+            f"LM restart: resumed {resumed}, final step {final}")
+    require(segment.hist["losses"] == whole["losses"][4:],
+            "LM restart: the resumed losses differ")
+    require(equal, "LM restart: final state not bit-equal")
+
+
+def lm_train_full(card: str, steps: int = 4, batch: int = 4) -> dict:
+    """qwen3-1.7b at full width, bfloat16 parameters with float32 master
+    weights: train_4k's 4,096 tokens, batch cut from 256 to `batch`."""
+    import torch
+    from repro_torch.device import to_tensor
+    from repro_torch.launch import train
+    base = fresh_peak()
+    arch, init, step_fn, data = train.build_trainer(
+        "qwen3-1.7b", "train_4k", scale="full", steps=steps, device="cuda",
+        batch=batch)
+    cfg = arch.model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pb = param_bytes(state.params)
+    ob = sum(t.numel() * t.element_size()
+             for d in (state.opt.m, state.opt.v, state.opt.master)
+             for t in d.values())
+    lat, losses = [], []
+    for step in range(steps):
+        b = {k: to_tensor(v, "cuda") for k, v in data(step).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() - base
+    S = arch.shape("train_4k").seq_len
+    tokens = batch * S
+    attn_ops = 3 * 2 * batch * S * S * cfg.n_heads * cfg.head_dim \
+        * cfg.n_layers
+    bound = (6 * cfg.n_params() * tokens + attn_ops) / BF16_OPS_PER_S * 1e3
+    p50 = float(np.percentile(np.asarray(lat[1:]) * 1e3, 50))
+    out = dict(arch="qwen3-1.7b", scale="full", seq=S, batch=batch,
+               batch_cut_from=256, steps=steps, params=cfg.n_params(),
+               param_bytes=pb, opt_bytes=ob, init_s=f"{init_s:.2f}",
+               first_step_ms=f"{lat[0] * 1e3:.1f}",
+               step_p50_ms=f"{p50:.1f}", step_bound_ms=f"{bound:.1f}",
+               bound_by="operations", share_of_bound=f"{bound / p50:.4f}",
+               peak_bytes=peak, peak_over_state=f"{peak / (pb + ob):.4f}",
+               losses=compact([f"{x:.4f}" for x in losses]),
+               card=json.dumps(card))
+    log("lm_train", check="full_width", **out)
+    require(all(np.isfinite(losses)), "qwen3-1.7b: a loss is not finite")
+    del state, step_fn, init, data
+    fresh_peak()
+    return out
+
+
+def phase_lm_train(root: str, card: str):
+    """[lm_train]: the LM trainer on the card: tiny_lm parity with the
+    CPU, a falling loss, a bit-equal restart; qwen3-1.7b at full width."""
+    from repro_torch.kernels import _build
+    _build.reset_launch_counts()
+    init = lm_train_parity(card)
+    lm_train_curve(init, card)
+    lm_train_restart(root, card)
+    full = lm_train_full(card)
+    launches = sum(_build.launch_counts.values())
+    log("lm_train", kernel_launches=launches, card=json.dumps(card))
+    require(launches == 0, "the LM training path launched a port kernel")
+    return full
+
+
 def main() -> int:
     faulthandler.enable()          # a crash in native code prints its stack
     # PyTorch tears CUPTI down after each profiler window and sets it up
@@ -3579,6 +4198,10 @@ def run_phases(root: str) -> int:
                                searches_1m, root)
     tower_launches = timed("recsys_towers", phase_recsys_towers)
     timed("train", phase_train, root)
+    card = card_line()
+    timed("lm_parity", phase_lm_parity, card)
+    timed("lm_serve", phase_lm_serve, card)
+    timed("lm_train", phase_lm_train, root, card)
     log("phase_s", total=round(sum(PHASE_S.values()), 2),
         by_phase=compact(PHASE_S))
     log("profiler", windows=len(PROFILED_LAUNCHES),

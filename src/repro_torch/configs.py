@@ -1,14 +1,16 @@
 """Index configurations of the paper's Table 1 (copy of
 `repro.configs.base.IndexConfig` and `repro.configs.aisaq_indices`), the
 recommender configurations (`RecsysConfig`; `SASREC`, `DLRM_RM2`,
-`DCN_V2`, `WIDE_DEEP`; the `REC_SHAPES` cells) and the `--arch` registry
-(`get_arch`, `list_archs`: copies of `repro.configs.registry`'s for the
-families the port runs)."""
+`DCN_V2`, `WIDE_DEEP`; the `REC_SHAPES` cells), the language models
+(`MoEConfig`, `LMConfig`; `QWEN3_1P7B`, `H2O_DANUBE_1P8B`, `QWEN2_1P5B`,
+`QWEN2_MOE_A2P7B`, `LLAMA4_SCOUT_17B_A16E`; the `LM_SHAPES` cells) and
+the `--arch` registry (`get_arch`, `list_archs`: copies of
+`repro.configs.registry`'s for the families the port runs)."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -200,6 +202,148 @@ WIDE_DEEP = RecsysConfig(
 
 
 # ---------------------------------------------------------------------------
+# language models (copies of `repro.configs.base.MoEConfig`, `LMConfig`,
+# `LM_SHAPES` and the five `repro/configs/*.py` LM modules)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """GShard-style top-k routed MoE with optional shared experts."""
+
+    n_experts: int
+    top_k: int
+    d_expert: int                 # hidden width of each routed expert
+    n_shared_experts: int = 0
+    d_shared: int = 0             # total hidden width of the shared expert(s)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 1e-3
+
+    # experts are sharded over an expert-parallel axis; pad the count up to
+    # a multiple of the axis size so the expert dim shards evenly
+    def padded_experts(self, ep: int) -> int:
+        return ((self.n_experts + ep - 1) // ep) * ep
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    attention: str = "full"       # full | sliding | chunked_global
+    window: int = 0               # sliding window size / local chunk size
+    global_every: int = 0         # chunked_global: every k-th layer is global
+    rope_theta: float = 1_000_000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
+    dtype: str = "bfloat16"
+    remat: bool = True
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    def n_params(self) -> int:
+        """Total parameter count (embeddings included)."""
+        d, L = self.d_model, self.n_layers
+        attn = d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
+        if self.moe is None:
+            ffn = 3 * d * self.d_ff
+        else:
+            m = self.moe
+            ffn = m.n_experts * 3 * d * m.d_expert + 3 * d * m.d_shared
+            ffn += d * m.n_experts  # router
+        norms = 2 * d
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return L * (attn + ffn + norms) + emb + d
+
+    def n_active_params(self) -> int:
+        """Parameters touched per token (MoE counts only routed top-k)."""
+        if self.moe is None:
+            return self.n_params()
+        d, L, m = self.d_model, self.n_layers, self.moe
+        attn = d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
+        ffn = m.top_k * 3 * d * m.d_expert + 3 * d * m.d_shared \
+            + d * m.n_experts
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return L * (attn + ffn + 2 * d) + emb + d
+
+    def scaled(self, **kw) -> "LMConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# canonical LM shape set (assigned to every LM arch)
+LM_SHAPES = (
+    ShapeConfig("train_4k", "lm_train", seq_len=4096, global_batch=256),
+    ShapeConfig("prefill_32k", "lm_prefill", seq_len=32768, global_batch=32),
+    ShapeConfig("decode_32k", "lm_decode", seq_len=32768, global_batch=128),
+    ShapeConfig("long_500k", "lm_decode", seq_len=524288, global_batch=1),
+)
+
+# qwen3-1.7b [hf:Qwen/Qwen3-8B family; hf] — dense, GQA kv=8, qk_norm
+QWEN3_1P7B = LMConfig(
+    name="qwen3-1.7b", n_layers=28, d_model=2048, n_heads=16, n_kv_heads=8,
+    head_dim=128, d_ff=6144, vocab_size=151936, qk_norm=True,
+    attention="full", rope_theta=1_000_000.0, tie_embeddings=True,
+)
+
+# h2o-danube-1.8b [arXiv:2401.16818; hf] — llama+mistral mix with SWA
+H2O_DANUBE_1P8B = LMConfig(
+    name="h2o-danube-1.8b", n_layers=24, d_model=2560, n_heads=32,
+    n_kv_heads=8, head_dim=80, d_ff=6912, vocab_size=32000,
+    attention="sliding", window=4096,       # mistral-style sliding window
+    rope_theta=10_000.0,
+)
+
+# qwen2-1.5b [arXiv:2407.10671; hf] — dense GQA kv=2 with QKV bias
+QWEN2_1P5B = LMConfig(
+    name="qwen2-1.5b", n_layers=28, d_model=1536, n_heads=12, n_kv_heads=2,
+    head_dim=128, d_ff=8960, vocab_size=151936, qkv_bias=True,
+    attention="full", rope_theta=1_000_000.0, tie_embeddings=True,
+)
+
+# qwen2-moe-a2.7b [hf:Qwen/Qwen1.5-MoE-A2.7B; hf] — 60 routed top-4 + 4
+# shared
+QWEN2_MOE_A2P7B = LMConfig(
+    name="qwen2-moe-a2.7b", n_layers=24, d_model=2048, n_heads=16,
+    n_kv_heads=16, head_dim=128,
+    d_ff=1408,                      # routed-expert hidden (per spec line)
+    vocab_size=151936, qkv_bias=True, attention="full",
+    rope_theta=1_000_000.0,
+    moe=MoEConfig(n_experts=60, top_k=4, d_expert=1408, n_shared_experts=4,
+                  d_shared=5632,    # 4 shared experts x 1408
+                  capacity_factor=1.25),
+)
+
+# llama4-scout-17b-a16e [hf:meta-llama/Llama-4-Scout-17B-16E; unverified]:
+# MoE 16 routed top-1 + 1 shared expert per layer; iRoPE attention:
+# chunked local attention (chunk 8192) with every 4th layer global (NoPE)
+LLAMA4_SCOUT_17B_A16E = LMConfig(
+    name="llama4-scout-17b-a16e", n_layers=48, d_model=5120, n_heads=40,
+    n_kv_heads=8, head_dim=128, d_ff=8192, vocab_size=202048,
+    attention="chunked_global",
+    window=8192,                    # local-attention chunk length
+    global_every=4,                 # every 4th layer attends globally
+    rope_theta=500_000.0,
+    moe=MoEConfig(n_experts=16, top_k=1, d_expert=8192, n_shared_experts=1,
+                  d_shared=8192, capacity_factor=1.25),
+)
+
+
+
+# ---------------------------------------------------------------------------
 # the --arch registry (copy of `repro.configs.base.ArchConfig` and
 # `repro.configs.registry`)
 # ---------------------------------------------------------------------------
@@ -235,13 +379,36 @@ def _ann(arch_id: str, model: IndexConfig) -> ArchConfig:
                       shapes=ANN_SHAPES, source="paper Table 1")
 
 
-# the LM and GNN architectures of the reference's registry: their models
-# and training scaffolding are not ported yet
-_NOT_PORTED_ARCHS = ("qwen3-1.7b", "h2o-danube-1.8b", "qwen2-1.5b",
-                     "qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
-                     "graphsage-reddit")
+def _lm(arch_id: str, model: LMConfig, source: str,
+        skip_reason: str = "") -> ArchConfig:
+    return ArchConfig(arch_id=arch_id, family="lm", model=model,
+                      shapes=LM_SHAPES,
+                      skip_shapes=("long_500k",) if skip_reason else (),
+                      skip_reason=skip_reason, source=source)
+
+
+# the GNN architecture of the reference's registry: `models/gnn.py` and
+# `models/gnn_sharded.py` are not ported yet
+_NOT_PORTED_ARCHS = ("graphsage-reddit",)
 
 _REGISTRY: Dict[str, ArchConfig] = {
+    "qwen3-1.7b": _lm(
+        "qwen3-1.7b", QWEN3_1P7B, "hf:Qwen/Qwen3-8B; hf",
+        "pure full attention: 500k decode is quadratic-KV with no "
+        "published sub-quadratic variant for this checkpoint "
+        "(DESIGN.md §4)"),
+    # sliding window => O(S*W) compute and window-bounded KV: long_500k runs
+    "h2o-danube-1.8b": _lm("h2o-danube-1.8b", H2O_DANUBE_1P8B,
+                           "arXiv:2401.16818; hf"),
+    "qwen2-1.5b": _lm("qwen2-1.5b", QWEN2_1P5B, "arXiv:2407.10671; hf",
+                      "pure full attention (DESIGN.md §4)"),
+    "qwen2-moe-a2.7b": _lm("qwen2-moe-a2.7b", QWEN2_MOE_A2P7B,
+                           "hf:Qwen/Qwen1.5-MoE-A2.7B; hf",
+                           "pure full attention (DESIGN.md §4)"),
+    # chunked-local + SP-decoded sparse global layers => long_500k runs
+    "llama4-scout-17b-a16e": _lm(
+        "llama4-scout-17b-a16e", LLAMA4_SCOUT_17B_A16E,
+        "hf:meta-llama/Llama-4-Scout-17B-16E; unverified"),
     "dlrm-rm2": _rec("dlrm-rm2", DLRM_RM2, "arXiv:1906.00091; paper"),
     "sasrec": _rec("sasrec", SASREC, "arXiv:1808.09781; paper"),
     "dcn-v2": _rec("dcn-v2", DCN_V2, "arXiv:2008.13535; paper"),
@@ -262,12 +429,13 @@ ASSIGNED_ARCHS: List[str] = list(_ORDER[:10])
 
 def get_arch(arch_id: str) -> ArchConfig:
     """The ArchConfig of an `--arch` id. Unknown ids raise KeyError as the
-    reference's registry does; the LM and GNN ids raise
-    NotImplementedError (their models are ROADMAP.md §1 item 7)."""
+    reference's registry does; the GNN id raises NotImplementedError (its
+    models are not ported)."""
     if arch_id in _NOT_PORTED_ARCHS:
         raise NotImplementedError(
-            f"arch {arch_id!r} is not ported: the LM and GNN models and "
-            "their training scaffolding are ROADMAP.md §1 item 7")
+            f"arch {arch_id!r} is not ported: the GNN models "
+            "(models/gnn.py, models/gnn_sharded.py) and their training "
+            "branches are missing from repro_torch")
     try:
         return _REGISTRY[arch_id]
     except KeyError:

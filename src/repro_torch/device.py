@@ -28,6 +28,16 @@ def full_fp32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def exact_reductions() -> None:
+    """`full_fp32`, and bfloat16 products that reduce in float32: cuBLAS
+    may otherwise split a long reduction and add the parts in bfloat16
+    (`allow_bf16_reduced_precision_reduction` is on by default), where
+    the reference's bfloat16 dots accumulate in float32. Called by the
+    language models' entry points."""
+    full_fp32()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 def to_tensor(x, device: torch.device,
               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """A tensor on `device`; numpy input is copied (it may be read-only,

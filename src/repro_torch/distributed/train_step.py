@@ -1,11 +1,12 @@
 """Train state and the train / serve step factories of the recommender
-family (port of `repro.distributed.train_step`).
+and language-model families (port of `repro.distributed.train_step`).
 
-The LM and GNN families raise NotImplementedError: their models are
-ROADMAP.md §1 item 7. A train step runs the loss forward and backward
-(autograd; the embedding tables get sparse gradients) and the optimizer,
-which updates the parameters and its state in place, as the reference's
-jitted step does with its donated state.
+The GNN family raises NotImplementedError: `models/gnn.py` and
+`models/gnn_sharded.py` are not ported. A train step runs the loss
+forward and backward (autograd; the recommender tables get sparse
+gradients, an LM's embedding a dense one) and the optimizer, which
+updates the parameters and its state in place, as the reference's jitted
+step does with its donated state.
 """
 from __future__ import annotations
 
@@ -18,8 +19,8 @@ from torch import nn
 
 from repro_torch.configs import ArchConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device, to_tensor
-from repro_torch.optim.adamw import (OptState, is_embedding, make_optimizer,
-                                     param_tree, warmup_cosine)
+from repro_torch.optim.adamw import (OptState, make_optimizer, param_tree,
+                                     warmup_cosine)
 
 
 class TrainState(NamedTuple):
@@ -29,8 +30,8 @@ class TrainState(NamedTuple):
 
 def _not_ported(family: str):
     return NotImplementedError(
-        f"the {family} family is not ported: its models and their training "
-        "are ROADMAP.md §1 item 7")
+        f"the {family} family is not ported: repro_torch has no "
+        "models/gnn.py or models/gnn_sharded.py")
 
 
 def default_optimizer(total_steps: int = 10000, base_lr: float = 3e-4):
@@ -39,10 +40,13 @@ def default_optimizer(total_steps: int = 10000, base_lr: float = 3e-4):
 
 
 def make_loss_fn(arch: ArchConfig, shape: ShapeConfig) -> Callable:
+    if arch.family == "lm":
+        from repro_torch.models.transformer import lm_loss
+        return lambda p, b: lm_loss(p, b, arch.model)
     if arch.family == "recsys":
         from repro_torch.models.recsys import rec_loss
         return lambda p, b: rec_loss(p, b, arch.model)
-    if arch.family in ("lm", "gnn"):
+    if arch.family == "gnn":
         raise _not_ported(arch.family)
     raise ValueError(arch.family)
 
@@ -53,9 +57,10 @@ def _grads(loss_fn, params: nn.Module, batch: dict):
     gs = torch.autograd.grad(loss, list(tree.values()), allow_unused=True)
     grads = dict(zip(tree, gs))
     for n, g in grads.items():
-        # the optimizer's row-wise leaves (the tables) train on the rows
-        # `recsys.lookup` read; a dense gradient would double their size
-        if is_embedding(n) and g is not None and not g.is_sparse:
+        # the recommender tables train on the rows `recsys.lookup` read; a
+        # dense gradient would double their size. (An LM's `embed`, also a
+        # row-wise leaf, gets a dense one: tied, it is the unembedding too.)
+        if n.startswith("tables/") and g is not None and not g.is_sparse:
             raise RuntimeError(f"{n}: a dense gradient of shape "
                                f"{tuple(g.shape)}; tables train on "
                                "sparse gradients")
@@ -105,7 +110,20 @@ def make_train_step(arch: ArchConfig, shape: ShapeConfig, optimizer=None,
 
 
 def make_serve_step(arch: ArchConfig, shape: ShapeConfig) -> Callable:
-    if arch.family in ("lm", "gnn"):
+    """lm: `lm_prefill` (p, b) -> logits, or `lm_decode_step` as
+    step(p, cache, b) -> (logits, cache); recsys: CTR logits or the
+    retrieval top-100."""
+    if arch.family == "lm":
+        from repro_torch.models import transformer as T
+        if shape.kind == "lm_prefill":
+            return lambda p, b: T.lm_prefill(p, b["tokens"], arch.model)
+        if shape.kind == "lm_decode":
+            def step(p, cache, b):
+                return T.lm_decode_step(p, cache, b["token"], b["pos"],
+                                        arch.model)
+            return step
+        raise ValueError((arch.family, shape.kind))
+    if arch.family == "gnn":
         raise _not_ported(arch.family)
     if arch.family != "recsys":
         raise ValueError((arch.family, shape.kind))
@@ -140,10 +158,15 @@ def _leaves(tree, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def train_state_from_jax(state, *, device: DeviceLike = None) -> TrainState:
     """The reference's TrainState (params and OptState, as numpy arrays or
-    anything `np.asarray` takes) as the port's, on `device`."""
-    from repro_torch.models.recsys import recsys_params_from_jax
+    anything `np.asarray` takes) as the port's, on `device`: an LM's
+    (params with `embed` and `layers`) or a recommender's."""
     dev = resolve_device(device)
-    params = recsys_params_from_jax(state.params, device=dev)
+    if "embed" in state.params and "layers" in state.params:
+        from repro_torch.models.transformer import lm_params_from_jax
+        params = lm_params_from_jax(state.params, device=dev)
+    else:
+        from repro_torch.models.recsys import recsys_params_from_jax
+        params = recsys_params_from_jax(state.params, device=dev)
     names = list(param_tree(params))
 
     def opt_dict(tree):

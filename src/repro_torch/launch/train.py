@@ -1,14 +1,20 @@
-"""Training launcher of the recommender towers: state init, checkpoint and
-restart, heartbeats, deterministic data resume (port of
-`repro.launch.train`, recommender family).
+"""Training launcher of the recommender towers and the language models:
+state init, checkpoint and restart, heartbeats, deterministic data resume
+(port of `repro.launch.train`, recommender and LM families).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \
         --shape train_batch --steps 100 [--ckpt-dir DIR] [--scale tiny|full]
-        [--lr 3e-3] [--device cuda|cpu]
+        [--lr 3e-3] [--device cuda|cpu] [--batch N]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
+        --shape train_4k --steps 100
 
-`--scale tiny` keeps every width and cuts each table to at most 2,000 rows
-and the batch to at most 64, as the reference does; `--scale full` trains
-the published cardinalities at the shape's batch (train_batch: 65,536).
+Recommenders: `--scale tiny` keeps every width and cuts each table to at
+most 2,000 rows and the batch to at most 64, as the reference does;
+`--scale full` trains the published cardinalities at the shape's batch
+(train_batch: 65,536). LMs: `--scale tiny` is the reference's `tiny_lm`
+(4 layers, d_model 128, vocab 2,048, float32, no MoE) at sequence 128
+and batch 4; `--scale full` keeps the published model and the shape's
+sequence. `--batch` cuts the shape's batch (train_4k's is 256).
 Parameters are drawn from a seeded `torch.Generator`, or come from a
 reference state (`train_state_from_jax`, or a checkpoint of either package
 in `--ckpt-dir`, which a run resumes from).
@@ -31,9 +37,20 @@ from repro_torch.distributed.train_step import (TrainState, default_optimizer,
                                                 make_train_step)
 
 
+def tiny_lm(cfg):
+    return cfg.scaled(n_layers=4, d_model=128, n_heads=4, n_kv_heads=2,
+                      head_dim=32, d_ff=256, vocab_size=2048,
+                      window=min(cfg.window, 64) if cfg.window else 0,
+                      moe=None, dtype="float32")
+
+
 def _make_init(arch):
-    """(generator, device) -> parameters (the recommender branch of the
-    reference's `launch.inputs._make_init`)."""
+    """(generator, device) -> parameters (the LM and recommender branches
+    of the reference's `launch.inputs._make_init`)."""
+    if arch.family == "lm":
+        from repro_torch.models.transformer import init_lm
+        return lambda generator, device: init_lm(
+            arch.model, generator=generator, device=device)
     from repro_torch.models.recsys import init_recsys
     return lambda generator, device: init_recsys(
         arch.model, generator=generator, device=device)
@@ -41,31 +58,46 @@ def _make_init(arch):
 
 def build_trainer(arch_id: str, shape_name: str, *, scale: str = "tiny",
                   microbatches: int = 1, lr: float = 3e-3, steps: int = 100,
-                  device: DeviceLike = None):
+                  device: DeviceLike = None, batch: Optional[int] = None):
     """Returns (arch, state_init, step_fn, data_gen). `state_init(generator
     =None, device=None)` draws the parameters from `generator` (default: a
     generator on the device seeded with 0) and a fresh optimizer state, on
     `device` (default: the trainer's; "meta" gives a skeleton that
-    allocates nothing, for `restore` to fill)."""
+    allocates nothing, for `restore` to fill). `batch`, when given, cuts
+    the shape's batch (an LM's global_batch, a recommender's batch)."""
     dev = resolve_device(device)
-    arch = get_arch(arch_id)           # the LM and GNN ids raise here
-    if arch.family != "recsys":
+    arch = get_arch(arch_id)           # the GNN id raises here
+    if arch.family not in ("lm", "recsys"):
         raise ValueError(f"{arch_id} ({arch.family}) has no training path")
     shape = arch.shape(shape_name)
     if scale == "tiny":
-        # keep embed_dim (DLRM ties it to bot_mlp[-1]); shrink tables
-        arch = dataclasses.replace(arch, model=arch.model.scaled(
-            vocab_sizes=tuple(min(v, 2000) for v in arch.model.vocab_sizes)))
-        shape = dataclasses.replace(shape, batch=min(shape.batch, 64))
+        if arch.family == "lm":
+            arch = dataclasses.replace(arch, model=tiny_lm(arch.model))
+            shape = dataclasses.replace(shape, seq_len=128, global_batch=4)
+        else:
+            # keep embed_dim (DLRM ties it to bot_mlp[-1]); shrink tables
+            arch = dataclasses.replace(arch, model=arch.model.scaled(
+                vocab_sizes=tuple(min(v, 2000)
+                                  for v in arch.model.vocab_sizes)))
+            shape = dataclasses.replace(shape, batch=min(shape.batch, 64))
+    if batch is not None:
+        shape = dataclasses.replace(
+            shape, **{"global_batch" if arch.family == "lm" else "batch":
+                      batch})
     init_fn = _make_init(arch)
     opt = default_optimizer(total_steps=steps, base_lr=lr)
     opt_init, _ = opt
     step_fn = make_train_step(arch, shape, optimizer=opt,
                               microbatches=microbatches)
-    from repro_torch.data.pipeline import ClickStream, SasrecStream
-    ds = (SasrecStream(arch.model, shape.batch)
-          if arch.model.kind == "sasrec"
-          else ClickStream(arch.model, shape.batch))
+    from repro_torch.data.pipeline import ClickStream, SasrecStream, \
+        TokenStream
+    if arch.family == "lm":
+        ds = TokenStream(arch.model.vocab_size, shape.seq_len,
+                         shape.global_batch)
+    elif arch.model.kind == "sasrec":
+        ds = SasrecStream(arch.model, shape.batch)
+    else:
+        ds = ClickStream(arch.model, shape.batch)
 
     def state_init(generator: Optional[torch.Generator] = None,
                    device: DeviceLike = None) -> TrainState:
@@ -83,7 +115,8 @@ def train_loop(arch_id: str, shape_name: str, *, steps: int,
                scale: str = "tiny", resume: bool = True,
                fail_at_step: Optional[int] = None, verbose: bool = True,
                lr: float = 3e-3, device: DeviceLike = None,
-               init_state: Optional[TrainState] = None):
+               init_state: Optional[TrainState] = None,
+               batch: Optional[int] = None):
     """Run training with checkpoint/restart support. Returns the history
     dict (losses, final_step, wall_s) and the final `state`.
 
@@ -93,7 +126,8 @@ def train_loop(arch_id: str, shape_name: str, *, steps: int,
     fault-tolerance tests); a checkpoint in flight is finished first."""
     dev = resolve_device(device)
     arch, state_init, step_fn, data_gen = build_trainer(
-        arch_id, shape_name, scale=scale, steps=steps, lr=lr, device=dev)
+        arch_id, shape_name, scale=scale, steps=steps, lr=lr, device=dev,
+        batch=batch)
     start = latest_step(ckpt_dir) if ckpt_dir and resume else None
     if start is not None:
         # the checkpoint fills `init_state` in place, or a skeleton on the
@@ -146,10 +180,12 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--device", default="cuda",
                     help="where the model trains (cuda or cpu)")
+    ap.add_argument("--batch", type=int,
+                    help="cut the shape's batch to this many rows")
     args = ap.parse_args(argv)
     hist = train_loop(args.arch, args.shape, steps=args.steps,
                       ckpt_dir=args.ckpt_dir, scale=args.scale, lr=args.lr,
-                      device=args.device)
+                      device=args.device, batch=args.batch)
     print(f"final loss {hist['losses'][-1]:.4f} after {args.steps} steps "
           f"in {hist['wall_s']:.1f}s")
 

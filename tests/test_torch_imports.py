@@ -66,6 +66,9 @@ TRAIN_MODULES = ("data.pipeline", "optim", "optim.adamw", "checkpoint",
                  "checkpoint.ckpt", "distributed", "distributed.train_step",
                  "distributed.fault_tolerance", "launch.train")
 
+#: the modules of the language-model slice
+LM_MODULES = ("configs", "models.layers", "models.moe", "models.transformer")
+
 _BLOCKER = """
 import importlib, json, sys
 class _Blocked:
@@ -90,7 +93,8 @@ def blocked_imports():
     """One process where any import of jax or repro raises imports each
     storage module in turn: module -> 'ok' or the error."""
     code = _BLOCKER.format(forbidden=set(FORBIDDEN),
-                           modules=STORAGE_MODULES + TRAIN_MODULES)
+                           modules=STORAGE_MODULES + TRAIN_MODULES
+                           + LM_MODULES)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -108,6 +112,48 @@ def test_storage_modules_import_with_jax_and_repro_blocked(blocked_imports,
 def test_train_modules_import_with_jax_and_repro_blocked(blocked_imports,
                                                          module):
     assert blocked_imports[module] == "ok"
+
+
+@pytest.mark.parametrize("module", LM_MODULES)
+def test_lm_modules_import_with_jax_and_repro_blocked(blocked_imports,
+                                                      module):
+    assert blocked_imports[module] == "ok"
+
+
+def test_lm_entry_points_need_a_card_or_device_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points run on it")
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import train_step as ts
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    cfg = train.tiny_lm(get_arch("qwen3-1.7b").model)
+    mc = get_arch("qwen2-moe-a2.7b").model.moe
+    g = torch.Generator().manual_seed(0)
+    calls = [
+        lambda **kw: T.init_lm(cfg, generator=g, **kw),
+        lambda **kw: T.init_cache(cfg, 1, 4, **kw),
+        lambda **kw: moe.init_moe(8, mc, generator=g, **kw),
+        lambda **kw: train.build_trainer("qwen3-1.7b", "train_4k", **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        call(device="cpu")
+    p = T.init_lm(cfg, generator=g, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.lm_params_from_jax({n: t.detach().numpy() for n, t in
+                              [("embed", p.embed),
+                               ("final_norm", p.final_norm)]}
+                             | {"layers": {}})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen3-1.7b", "--shape", "train_4k",
+                    "--steps", "1"])
+    _, init, _, _ = train.build_trainer("qwen3-1.7b", "train_4k",
+                                        device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ts.state_to(init())
 
 
 def test_train_entry_points_need_a_card_or_device_cpu(tmp_path):

@@ -147,9 +147,13 @@ def test_registry_lists_and_refusals():
         configs.get_arch("no-such-arch")
     with pytest.raises(KeyError, match="unknown arch"):
         jregistry.get_arch("no-such-arch")
-    for arch in ("qwen3-1.7b", "graphsage-reddit", "llama4-scout-17b-a16e"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            configs.get_arch(arch)
+    # the GNN id refuses, naming its missing modules; the LM ids are ported
+    with pytest.raises(NotImplementedError, match="models/gnn.py"):
+        configs.get_arch("graphsage-reddit")
+    for arch in ("qwen3-1.7b", "llama4-scout-17b-a16e"):
+        assert configs.get_arch(arch).family == "lm"
+        assert dataclasses.asdict(configs.get_arch(arch)) == \
+            dataclasses.asdict(jregistry.get_arch(arch))
     assert configs.get_arch("sasrec").shape("serve_p99").batch == 512
 
 

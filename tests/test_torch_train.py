@@ -378,15 +378,25 @@ def test_train_step_matches_the_reference(aid, mb, clip, repeat):
 @pytest.mark.parametrize("aid,shape", [("qwen3-1.7b", "train_4k"),
                                        ("graphsage-reddit", "full_graph")])
 def test_lm_and_gnn_archs_raise_not_implemented(aid, shape):
+    """The GNN family raises NotImplementedError naming its missing
+    modules; the LM family, ported since, trains instead (one tiny step)."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train.build_trainer(aid, shape, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train.train_loop(aid, shape, steps=1, device="cpu")
     fam = jget_arch(aid).family
+    if fam == "lm":
+        hist = train.train_loop(aid, shape, steps=1, device="cpu",
+                                verbose=False)
+        assert np.isfinite(hist["losses"][0])
+        arch = configs.get_arch(aid)
+        for fn in (ts.make_loss_fn, ts.make_train_step):
+            assert callable(fn(arch, arch.shape(shape)))
+        return
+    with pytest.raises(NotImplementedError, match="models/gnn.py"):
+        train.build_trainer(aid, shape, device="cpu")
+    with pytest.raises(NotImplementedError, match="models/gnn.py"):
+        train.train_loop(aid, shape, steps=1, device="cpu")
     fake = dataclasses.replace(configs.get_arch("dcn-v2"), family=fam)
     for fn in (ts.make_loss_fn, ts.make_train_step, ts.make_serve_step):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(NotImplementedError, match="models/gnn.py"):
             fn(fake, fake.shapes[0])
 
 
