@@ -6,7 +6,8 @@
 Phases, one line each (any failed check raises, so the exit code is
 non-zero):
   1. environment: card name and power limit, torch/CUDA versions, nvcc build
-     of `src/repro_torch/kernels/csrc/aisaq_kernels.cu`;
+     of `src/repro_torch/kernels/csrc/aisaq_kernels.cu` and
+     `gnn_kernels.cu` (one nvcc each, side by side, then a link);
   2. kernel parity: every CUDA kernel against its plain PyTorch version on
      the card, at SIFT1M widths (f32, l2; batches of 1, 64 and 256),
      SIFT1B widths (u8, mips), KILT-E5-22M widths (d=1024, R=69, mips) and
@@ -193,13 +194,57 @@ non-zero):
      256), 4 steps: step p50 beside 6 N tokens plus the attention's
      products at 989 TFLOP/s, peak bytes against parameters and optimizer
      state; no port kernel launched. Every LM line carries the card line.
+ 24. `[gnn_parity]`: the segment-sum kernel (`csrc/gnn_kernels.cu`, the
+     GNN family's aggregation) against its plain version in float64 on
+     the card, within the running-error bound of float32 sums in the
+     kernel's order, forward (by destination) and backward (by source) at
+     F = 7, 24, 100, 128, 602 and 1,433, with empty rows, duplicate
+     edges, self-loops and (n, n) dummies, and at F = 7 and 128 two
+     destinations and two sources of 2.1M and 12,411 edges (hub rows cut
+     into chunks, two a way); every call twice, bit-equal; the kernel's registers,
+     spills and resident CTAs; then reduced graphsage-reddit (d_hidden
+     64) card vs CPU in float32: full-graph logits (mean, sum, max),
+     loss and gradients, minibatch and batched losses and gradients,
+     within TOL_GNN_PARITY;
+ 25. `[gnn_serve]`: graphsage-reddit at full width (random weights) on
+     all four GNN shapes, the graphs being `make_graph` draws at the
+     shapes' sizes (ogb_products and minibatch_lg drawn by two helper
+     processes while the LM phases run): full_graph_sm and ogb_products
+     forward p50/p99 of 5 beside the port's floor (`gnn_full_floor`:
+     each op's inputs read once, outputs written once, no messages) and
+     the reference's message-materialising reckoning (`launch.flops`,
+     the step's terms without the 3x of training), and peak bytes; minibatch_lg's
+     host sampler ms for 1,024 seeds at fanout (15, 10) and the forward
+     on blocks gathered on the card; molecule's batched forward of 128
+     graphs; then the kernel at ogb_products' hidden width (F = 128),
+     the main path's shape: against its plain version in float64 over
+     both CSRs (the backward's zipf hub rows included), 8 columns at a
+     time, bit-equal across two calls; forward and backward ms, the
+     plain version's, `torch.sparse.mm`'s (the library call) and
+     `index_add_`'s on gathered messages;
+ 26. `[gnn_train]`: tiny full_graph_sm card vs CPU after each of 3 steps
+     (TOL_GNN_TRAIN), 30 steps at lr 1e-2 (last < 0.8x first, each loss
+     within TOL_GNN_LOSS of the CPU's), a restart bit-equal; ogb_products
+     at full width, 6 steps: p50/p99 after the first beside the step's
+     port floor and the reference's reckoning, peak bytes below the
+     (E, 128) message tensor's; 3 steps of
+     minibatch_lg on sampled blocks and of molecule, finite losses;
+ 27. `[gnn_sharded]`: ogb_products partitioned by destination over 4
+     gloo ranks (grid (2, 2), time-slicing the card, each reading its
+     partition from the run's files): the partitioned loss and gradients
+     against the one-process `gnn_full_loss` on the card, float32 wire
+     within TOL_SHARDED_LOSS / TOL_SHARDED_GRAD, bfloat16 wire (through
+     `train_step.make_loss_fn(arch, shape, grid)`) reported
+     (deviations, step ms, bytes gathered, peak bytes a rank).
 Each path's launch counts are reset just before it and read just after;
 the kernels line gives the main path's as `launches`, the storage
 path's as `launches_storage`, the dynamic index's (inserts and readers)
 as `launches_dynamic`, the service's as `launches_service`, the sharded
 phases' (every rank's timed searches, summed) as `launches_sharded` and
-`launches_sharded1m`, and the towers' graph requests as
-`launches_towers`. Each phase's seconds are printed as it ends
+`launches_sharded1m`, the towers' graph requests as
+`launches_towers`; `segment_sum`'s `launches` are the GNN serving
+path's, and every row has `launches_gnn_train` and
+`launches_gnn_sharded` (every rank's timed float32 step). Each phase's seconds are printed as it ends
 (`[phase_s]`) and all together before the card line. The run's index
 directories live in one temporary directory, removed at exit.
 Each profiled window whose counts are checked (the device ops of a
@@ -2700,9 +2745,11 @@ def rank_job(rank: int, job: dict, state: dict) -> dict:
     from repro_torch.core.chunk_layout import layout_for
     from repro_torch.core.vamana import random_regular_graph, shard_bounds
     from repro_torch.kernels import _build
+    op = job["op"]
+    if op.startswith("gnn_"):
+        return gnn_rank_job(rank, job, state)
     lay = layout_for(cfg)
     grids = state.setdefault("grids", {})
-    op = job["op"]
     if op == "load":
         z = np.load(job["npz"])
         state[job["name"]] = ss.ShardedIndexArrays(*(
@@ -4117,6 +4164,1015 @@ def phase_lm_train(root: str, card: str):
     return full
 
 
+# ---------------------------------------------------------------------------
+# the GNN family (`repro_torch.models.gnn`, `models.gnn_sharded`,
+# `kernels.segment`)
+# ---------------------------------------------------------------------------
+
+GNN_ARCH = "graphsage-reddit"
+GNN_SRC = "src/repro_torch/kernels/csrc/gnn_kernels.cu"
+GNN_REPLACES = ("jax.ops.segment_sum in src/repro/models/gnn.py:58 "
+                "(no pallas_call)")
+# the segment sum against its plain version in float64: the running-error
+# bound of float32 sums in the kernel's order (`seg_bound`), times 1 + this
+# (the bound is first order in 2^-24)
+TOL_SEG = 1e-3
+SEG_WIDTHS = (7, 24, 100, 128, 602, 1433)
+SEG_HUB_EDGES = 2_100_000         # a hub row's edges (above 2M)
+SEG_HUB2_EDGES = 12_411           # a second hub's: 3 chunks and a short one
+SEG_COLS = 8                      # float64 columns at a time at full width
+TOL_GNN_PARITY = 1e-5             # reduced graphsage-reddit, card vs CPU
+TOL_GNN_TRAIN = 1e-4              # parameters after each of 3 tiny steps
+TOL_GNN_LOSS = 1e-3               # the 30 tiny losses, card vs CPU
+TOL_SHARDED_LOSS = 1e-4           # tests/test_distributed.py's bar:
+TOL_SHARDED_GRAD = 1e-3           # loss, and gradients relative to the max
+GNN_GRID = (2, 2)
+GNN_REPS = 5                      # timed calls of each full-width forward
+GNN_SEEDS = 1024                  # minibatch_lg's batch_nodes
+# the full-width graphs drawn by helper processes while the LM phases run
+GNN_DRAWN = ("ogb_products", "minibatch_lg")
+
+
+def gnn_draw(name: str, out: str) -> None:
+    """A helper process: graphsage-reddit's `make_graph` draw at the
+    shape's size, saved as npy files in `out`; for ogb_products also its
+    `partition_edges` over GNN_GRID's ranks, for minibatch_lg its
+    `NeighborSampler` CSR. Seconds of each step in done.json."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import make_graph
+    arch = get_arch(GNN_ARCH)
+    shape = arch.shape(name)
+    secs = {}
+    t0 = time.perf_counter()
+    g = make_graph(shape.n_nodes, max(2, shape.n_edges // shape.n_nodes),
+                   shape.d_feat, arch.model.n_classes)
+    secs["draw_s"] = round(time.perf_counter() - t0, 2)
+    for k, v in g.items():
+        np.save(os.path.join(out, f"{k}.npy"), v)
+    t0 = time.perf_counter()
+    if name == "ogb_products":
+        from repro_torch.models.gnn_sharded import partition_edges
+        part, _ = partition_edges(g["edges"], shape.n_nodes,
+                                  int(np.prod(GNN_GRID)))
+        np.save(os.path.join(out, "edges_part.npy"), part)
+        secs["partition_s"] = round(time.perf_counter() - t0, 2)
+    else:
+        from repro_torch.models.gnn import NeighborSampler
+        s = NeighborSampler.from_edges(g["edges"], shape.n_nodes)
+        np.save(os.path.join(out, "indptr.npy"), s.indptr)
+        np.save(os.path.join(out, "indices.npy"), s.indices)
+        secs["sampler_csr_s"] = round(time.perf_counter() - t0, 2)
+    with open(os.path.join(out, "done.json"), "w") as f:
+        json.dump(secs, f)
+
+
+class GnnDraws:
+    """The GNN_DRAWN graphs drawn in spawned helper processes (host-only
+    numpy: ~20-60 s each), started early so that the draws overlap the
+    LM phases; `load` waits for one and reads its arrays."""
+
+    def __init__(self, root: str):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.dirs, self.procs = {}, {}
+        for name in GNN_DRAWN:
+            d = os.path.join(root, f"gnn_{name}")
+            os.makedirs(d, exist_ok=True)
+            p = ctx.Process(target=gnn_draw, args=(name, d), daemon=True)
+            p.start()
+            self.dirs[name], self.procs[name] = d, p
+
+    def wait(self, name: str, timeout: float = 900) -> dict:
+        p = self.procs[name]
+        t0 = time.perf_counter()
+        p.join(timeout)
+        if p.is_alive():
+            p.kill()
+            raise AssertionError(f"the {name} draw took over {timeout} s")
+        require(p.exitcode == 0, f"the {name} draw failed ({p.exitcode})")
+        with open(os.path.join(self.dirs[name], "done.json")) as f:
+            info = json.load(f)
+        info["waited_s"] = round(time.perf_counter() - t0, 2)
+        return info
+
+    def load(self, name: str, keys) -> dict:
+        return {k: np.load(os.path.join(self.dirs[name], f"{k}.npy"))
+                for k in keys}
+
+    def close(self) -> None:
+        for p in self.procs.values():
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=10)
+
+
+GRAPH_KEYS = ("feats", "edges", "labels", "mask")
+
+
+def gnn_on_card(g: dict):
+    """A make_graph draw on the card with its CSRs (`prepare_csr`), and
+    the CSRs' build seconds."""
+    import torch
+    from repro_torch.kernels.segment import prepare_csr
+    out = {k: torch.from_numpy(g[k]).cuda() for k in GRAPH_KEYS}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["csr"] = prepare_csr(out["edges"], out["feats"].shape[0])
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def small_graph(name: str) -> dict:
+    """graphsage-reddit's make_graph draw at a small shape's size."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import make_graph
+    arch = get_arch(GNN_ARCH)
+    s = arch.shape(name)
+    return make_graph(s.n_nodes, max(2, s.n_edges // s.n_nodes), s.d_feat,
+                      arch.model.n_classes)
+
+
+def molecule_batch(seed: int = 0, device="cuda") -> dict:
+    """molecule's 128 graphs of 30 nodes and 64 edges (seeded draws),
+    their labels, and the block-diagonal CSR."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.gnn import batched_csr
+    arch = get_arch(GNN_ARCH)
+    s = arch.shape("molecule")
+    rng = np.random.default_rng(seed)
+    G, n = s.batch_graphs, s.n_nodes
+    b = {"feats": rng.normal(size=(G, n, s.d_feat)).astype(np.float32),
+         "edges": rng.integers(0, n, (G, s.n_edges, 2)).astype(np.int32),
+         "labels": rng.integers(0, arch.model.n_classes, G).astype(np.int32)}
+    b = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+    b["csr"] = batched_csr(b["edges"], n)
+    return b
+
+
+def gnn_params(d_feat: int, seed: int = 0, device="cuda", cfg=None):
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.gnn import init_gnn
+    cfg = cfg or get_arch(GNN_ARCH).model
+    return init_gnn(cfg, d_feat, device=device,
+                    generator=torch.Generator(device).manual_seed(seed))
+
+
+def seg_case(F: int, hub: bool, seed: int, n: int = 5000,
+             e_rand: int = 60_000):
+    """x (n, F) and its graph's CSRs on the card: random edges into the
+    first 90% of rows (the rest have none), a tenth of them repeated,
+    self-loops, (n, n) dummies up to a multiple of 512; with `hub`, two
+    destinations and two sources of SEG_HUB_EDGES and SEG_HUB2_EDGES
+    edges (two hub rows each way, so the hub pass adds more than one)."""
+    import torch
+    from repro_torch.kernels.segment import prepare_csr
+    from repro_torch.models.gnn import pad_edges
+    rng = np.random.default_rng(seed)
+    live = int(n * 0.9)
+    src = rng.integers(0, n, e_rand)
+    dst = rng.integers(0, live, e_rand)
+    dup = rng.choice(e_rand, e_rand // 10)
+    loops = rng.integers(0, live, n // 20)
+    ss, ds = [src, src[dup], loops], [dst, dst[dup], loops]
+    if hub:
+        for e, d, sr in ((SEG_HUB_EDGES, 5, 7), (SEG_HUB2_EDGES, 6, 8)):
+            ss += [rng.integers(0, n, e), np.full(e, sr)]
+            ds += [np.full(e, d), rng.integers(0, live, e)]
+    edges = pad_edges(np.stack([np.concatenate(ss), np.concatenate(ds)],
+                               1).astype(np.int32), 512, n)
+    x = torch.from_numpy(rng.normal(size=(n, F)).astype(np.float32)).cuda()
+    return x, prepare_csr(torch.from_numpy(edges).cuda(), n), edges.shape[0]
+
+
+def seg_plan(csr) -> dict:
+    """The index work of `seg_bound` for one CSR, made once: each entry's
+    row, the first entry of its sum segment (a row's edges, or for a hub
+    row each chunk of CHUNK edges), whether it opens one, and the entries
+    that close a hub row's chunk (in chunk order) with their rows."""
+    import torch
+    from repro_torch.kernels import segment
+    rows = csr.rows()
+    counts = (csr.indptr[1:] - csr.indptr[:-1])[rows]
+    pos = torch.arange(rows.shape[0], device=rows.device)
+    start = csr.indptr[rows]
+    seg = torch.where(counts > segment.CHUNK,
+                      start + (pos - start) // segment.CHUNK * segment.CHUNK,
+                      start)
+    del start
+    last = torch.cat([seg[1:] != seg[:-1], torch.ones_like(pos[:1],
+                                                           dtype=torch.bool)])
+    ends = torch.nonzero(last & (counts > segment.CHUNK)).flatten()
+    hub_rows = rows[ends]
+    hub_open = torch.cat([torch.ones_like(hub_rows[:1], dtype=torch.bool),
+                          hub_rows[1:] != hub_rows[:-1]])
+    return dict(rows=rows, seg=seg, opens=pos == seg, ends=ends,
+                hub_rows=hub_rows, hub_open=hub_open)
+
+
+def seg_bound(x, csr, plan: dict):
+    """(n_rows, F) float64: the running-error bound of the kernel's float32
+    sums in the kernel's order, u * (sum over every add but a segment's
+    first of |the partial sum it makes|), u = 2^-24. A segment is a row's
+    edges, or for a hub row each chunk of CHUNK edges; a hub row then adds
+    its chunks' sums in order, which the bound counts the same way. Each
+    column's prefix sums are one 1-D scan (a scan down the rows of an
+    (E, F) tensor runs a thread a column)."""
+    import torch
+    g = x.double()[csr.col.long()].t().contiguous()          # (F, E)
+    cs = torch.zeros((x.shape[1], g.shape[1] + 1), dtype=torch.float64,
+                     device=x.device)
+    for c in range(x.shape[1]):
+        torch.cumsum(g[c], 0, out=cs[c, 1:])
+    del g
+    part = cs[:, 1:] - cs.index_select(1, plan["seg"])  # partial sums
+    del cs
+    sums = part.index_select(1, plan["ends"])    # hub chunks' sums, in order
+    part.abs_()
+    part.mul_(~plan["opens"])
+    bound = torch.zeros((x.shape[1], csr.n_rows), dtype=torch.float64,
+                        device=x.device)
+    bound.index_add_(1, plan["rows"], part)
+    del part
+    if sums.shape[1]:
+        # the hub pass: acc = 0 + s0, then + s1, ...: its partials are the
+        # running sums within a hub row after its first chunk
+        run = sums.cumsum(1)
+        k = torch.arange(sums.shape[1], device=x.device)
+        first = torch.cummax(torch.where(plan["hub_open"], k, 0), 0).values
+        run -= torch.cat([torch.zeros_like(run[:, :1]), run], 1)[:, first]
+        run.abs_()
+        run.mul_(~plan["hub_open"])
+        bound.index_add_(1, plan["hub_rows"], run)
+    return bound.t() * 2.0 ** -24
+
+
+def seg_check(x, csr, what: str, cols: int = 0) -> float:
+    """The kernel twice on (x, csr), bit-equal, against its plain version
+    (`ref.segment_sum_ref`) on the same inputs in float64: within the
+    running-error bound of float32 sums in the kernel's order
+    (`seg_bound`, TOL_SEG slack). With `cols`, the kernel runs at x's
+    whole width and the float64 side takes `cols` columns at a time (the
+    published graphs' (E, F) float64 gather does not fit at once). The
+    max abs error."""
+    import torch
+    from repro_torch.kernels.ref import segment_sum_ref
+    from repro_torch.kernels.segment import csr_sum
+    a, b = csr_sum(x, csr), csr_sum(x, csr)
+    torch.cuda.synchronize()
+    require(torch.equal(a, b), f"segment_sum {what}: two calls differ")
+    del b
+    plan = seg_plan(csr)
+    F = x.shape[1]
+    worst = 0.0
+    for c0 in range(0, F, cols or F):
+        xs = x[:, c0:c0 + (cols or F)]
+        want = segment_sum_ref(xs.double(), csr.col, plan["rows"],
+                               csr.n_rows)
+        lim = seg_bound(xs, csr, plan) * (1 + TOL_SEG)
+        err = (a[:, c0:c0 + xs.shape[1]].double() - want).abs()
+        if not bool((err <= lim).all()):
+            r, c = np.unravel_index(int((err - lim).argmax()),
+                                    tuple(err.shape))
+            deg = int(csr.indptr[r + 1] - csr.indptr[r])
+            raise AssertionError(
+                f"segment_sum {what}: row {r} ({deg} edges) col {c0 + c}: "
+                f"kernel {float(a[r, c0 + c])}, float64 {float(want[r, c])}"
+                f", bound {float(lim[r, c])}")
+        worst = max(worst, float(err.max()))
+        del want, lim, err
+    return worst
+
+
+def segment_parity() -> float:
+    """[gnn_parity] kernel lines: every width of SEG_WIDTHS forward (by
+    destination) and backward (by source, the gradient's direction), the
+    hub cases at F = 7 and 128 (both hub passes required), and the
+    autograd Function's gradient equal to the backward kernel's."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.segment import csr_sum, segment_occupancy, \
+        segment_sum
+    worst = 0.0
+    for i, F in enumerate(SEG_WIDTHS):
+        for hub in ((False, True) if F in (7, 128) else (False,)):
+            x, csr, n_edges = seg_case(F, hub, seed=i)
+            t0 = time.perf_counter()
+            fwd = seg_check(x, csr.by_dst, f"F={F} forward")
+            g = torch.randn(x.shape, device=x.device, generator=torch.
+                            Generator(x.device).manual_seed(i))
+            bwd = seg_check(g, csr.by_src, f"F={F} backward")
+            if hub:
+                require(csr.by_dst.hub_rows.shape[0] >= 2
+                        and csr.by_src.hub_rows.shape[0] >= 2,
+                        "the hub case has fewer than two hub rows a way")
+                xr = x.clone().requires_grad_()
+                segment_sum(xr, csr).backward(g)
+                require(torch.equal(xr.grad, csr_sum(g, csr.by_src)),
+                        "segment_sum's gradient is not the backward kernel's")
+            worst = max(worst, fwd, bwd)
+            log("gnn_parity", kernel="segment_sum", F=F, hub=hub,
+                edges=n_edges, valid_edges=csr.n_edges,
+                hub_rows_fwd_bwd=compact([csr.by_dst.hub_rows.shape[0],
+                                          csr.by_src.hub_rows.shape[0]]),
+                hub_chunks_fwd_bwd=compact([csr.by_dst.n_chunks,
+                                            csr.by_src.n_chunks]),
+                max_abs_err_fwd=f"{fwd:.3e}", max_abs_err_bwd=f"{bwd:.3e}",
+                bit_equal=True, tol=TOL_SEG,
+                s=f"{time.perf_counter() - t0:.2f}")
+            del x, csr, g
+    log("gnn_parity", kernel="segment_sum", build_s=_build.build_seconds,
+        **segment_occupancy())
+    return worst
+
+
+def finite_diff(a, b, what: str) -> float:
+    """max |a - b| where both are finite; raises unless a and b are
+    non-finite at the same places with the same values (-inf, NaN)."""
+    import torch
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    require(torch.equal(fa, fb) and torch.equal(a[~fa].nan_to_num(),
+                                                b[~fb].nan_to_num())
+            and torch.equal(a[~fa].isnan(), b[~fb].isnan()),
+            f"{what}: the non-finite values differ")
+    return float((a[fa] - b[fb]).abs().max()) if fa.any() else 0.0
+
+
+def gnn_model_parity(card: str) -> float:
+    """Reduced graphsage-reddit (d_hidden 64), float32, the same parameters
+    on the CPU and the card: the full graph's logits (mean, sum and max
+    aggregators), loss and every gradient; the minibatch and batched
+    losses and gradients (the same sampled ids on both devices); all
+    within TOL_GNN_PARITY."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import make_graph
+    from repro_torch.kernels.segment import prepare_csr
+    from repro_torch.models import gnn as G
+    from repro_torch.models.gnn import NeighborSampler, batched_csr
+    from repro_torch.optim.adamw import param_tree
+    base = get_arch(GNN_ARCH).model.scaled(d_hidden=64)
+    g = make_graph(1000, 10, 48, base.n_classes, seed=1)
+    p_cpu = gnn_params(48, device="cpu", cfg=base)
+    rng = np.random.default_rng(3)
+    Gr, n = 16, 30
+    bat = {"feats": rng.normal(size=(Gr, n, 48)).astype(np.float32),
+           "edges": rng.integers(-1, n + 1, (Gr, 64, 2)).astype(np.int32),
+           "labels": rng.integers(0, base.n_classes, Gr).astype(np.int32)}
+    seeds = np.arange(0, 1000, 8)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = p_cpu if dev == "cpu" else copy.deepcopy(p_cpu).to(dev)
+        tree = param_tree(p)
+        full = {k: torch.from_numpy(g[k]).to(dev) for k in GRAPH_KEYS}
+        full["csr"] = prepare_csr(full["edges"], 1000)
+        r = {}
+        for agg in ("sum", "max"):
+            r[f"logits_{agg}"] = G.gnn_full_forward(
+                p, full["feats"], full["edges"], base.scaled(aggregator=agg),
+                csr=full["csr"])
+        loss, m = G.gnn_full_loss(p, full, base)
+        r.update(logits_mean=G.gnn_full_forward(p, full["feats"], None,
+                                                base, csr=full["csr"]),
+                 loss=loss, acc=m["acc"])
+        r.update({f"grad/{k}": v for k, v in zip(
+            tree, torch.autograd.grad(loss, list(tree.values())))})
+        sampler = NeighborSampler.from_edges(g["edges"], 1000, seed=2)
+        blocks = sampler.sample_blocks(seeds, (5, 4),
+                                       torch.from_numpy(g["feats"]).to(dev))
+        blocks["labels"] = torch.from_numpy(g["labels"][seeds]).to(dev)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in bat.items()}
+        b["csr"] = batched_csr(b["edges"], n)
+        for kind, fn, batch in (("minibatch", G.gnn_minibatch_loss, blocks),
+                                ("batched", G.gnn_batched_loss, b)):
+            loss, _ = fn(p, batch, base)
+            r[f"{kind}_loss"] = loss
+            r.update({f"{kind}_grad/{k}": v for k, v in zip(
+                tree, torch.autograd.grad(loss, list(tree.values())))})
+        out[dev] = r
+    diffs = {k: finite_diff(out["cpu"][k], out["cuda"][k], k)
+             for k in out["cpu"]}
+    worst = max(diffs.values())
+    log("gnn_parity", check="model", arch=GNN_ARCH, d_hidden=64, nodes=1000,
+        tensors=len(diffs), max_diff=f"{worst:.3e}", tol=TOL_GNN_PARITY,
+        worst_tensor=max(diffs, key=diffs.get),
+        loss_cpu_card=compact([float(out["cpu"]["loss"].detach()),
+                               float(out["cuda"]["loss"].detach())]),
+        card=json.dumps(card))
+    require(worst <= TOL_GNN_PARITY,
+            f"graphsage card vs CPU: {max(diffs, key=diffs.get)} differs "
+            f"by {worst}")
+    return worst
+
+
+def phase_gnn_parity(card: str) -> float:
+    """[gnn_parity]: the segment-sum kernel against its plain version on
+    the card, forward and backward, bit-equal across two calls; then
+    reduced graphsage-reddit card vs CPU. Returns the kernel's worst
+    error."""
+    err = segment_parity()
+    gnn_model_parity(card)
+    return err
+
+
+def gnn_forward_bound(shape, n_edges: int):
+    """The least time of one forward: `flops.cell_terms`' step (the
+    reference's reckoning, at this run's edge count) without its 3x
+    training factor; (ms, "bytes" or "operations")."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.flops import cell_terms
+    s = dataclasses.replace(shape, n_edges=n_edges) if n_edges else shape
+    t = cell_terms(get_arch(GNN_ARCH), s, chips=1, model_ways=1, dp_ways=1)
+    by = "bytes" if t["t_memory"] >= t["t_compute"] else "operations"
+    return max(t["t_memory"], t["t_compute"]) * 1e3 / 3, by
+
+
+def gnn_full_floor(N: int, E: int, F: int, cfg, train: bool) -> dict:
+    """The least time of the port's full-graph forward (or train step) as
+    it is built: each op reads its inputs once and writes its outputs
+    once, the messages never exist. A layer of input width w: the segment
+    sum (x, the CSR, the in-degrees read, the (N, w) sum written, as
+    `segment_times` counts it), then the dense part (x and the sum read,
+    the (N, H) states written); the readout reads the states and writes
+    the logits. A step adds the loss's labels and mask and the backward:
+    each op reads the cotangent of its output and the saved tensors it
+    needs and writes the cotangents of its inputs (none for the features,
+    so layer 0's sum has no backward), the source CSR standing in for the
+    destination CSR. Operations: the float32 matmuls (2 a multiply-add;
+    a step two more for each, but layer 0's input gradients) and the
+    sum's adds. {ms, by, bytes, flops}."""
+    H, C, L = cfg.d_hidden, cfg.n_classes, cfg.n_layers
+    widths = [F] + [H] * (L - 1)
+    csr = (N + 1) * 8 + E * 4 + N * 4
+    nbytes = sum(2 * N * w * 4 + csr + 2 * N * w * 4 + N * H * 4
+                 for w in widths) + N * H * 4 + N * C * 4
+    flops = sum(E * w + 4 * N * w * H for w in widths) + 2 * N * H * C
+    if train:
+        nbytes += N * 8 + N * C * 4 + 2 * N * H * 4
+        for i, w in enumerate(widths):
+            nbytes += 2 * N * H * 4 + 2 * N * w * 4
+            if i:
+                nbytes += 2 * N * w * 4 + N * w * 4 + csr + N * w * 4
+        flops += sum((2 if i else 1) * 4 * N * w * H + (E * w if i else 0)
+                     for i, w in enumerate(widths)) + 4 * N * H * C
+    ms, by = bound_ms(nbytes, flops)
+    return dict(ms=ms, by=by, bytes=nbytes, flops=flops)
+
+
+def timed_calls(fn, reps: int = GNN_REPS):
+    """fn() `reps` times, each synchronised: (seconds each, last result)."""
+    import torch
+    lat, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    return lat, out
+
+
+def serve_full(name: str, graph: dict, card: str) -> dict:
+    """graphsage-reddit at full width (random weights) on one full-graph
+    shape through `make_serve_step`: p50/p99 of GNN_REPS forwards beside
+    the bound, peak device bytes above the graph, finite logits."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.train_step import make_serve_step
+    arch = get_arch(GNN_ARCH)
+    shape = arch.shape(name)
+    p = gnn_params(shape.d_feat)
+    fwd = make_serve_step(arch, shape)
+    base = fresh_peak()
+    with torch.no_grad():
+        lat, logits = timed_calls(lambda: fwd(p, graph))
+    peak = torch.cuda.max_memory_allocated() - base
+    N, E = graph["feats"].shape[0], graph["edges"].shape[0]
+    b_ms, by = gnn_forward_bound(shape, E)
+    floor = gnn_full_floor(N, graph["csr"].n_edges, shape.d_feat,
+                           arch.model, train=False)
+    finite = bool(torch.isfinite(logits).all())
+    pct = percentiles_ms(lat)
+    out = dict(shape=name, nodes=N, edges=E, d_feat=shape.d_feat, **pct,
+               floor_ms=f"{floor['ms']:.3f}", floor_by=floor["by"],
+               floor_bytes=floor["bytes"], floor_flops=floor["flops"],
+               p50_over_floor=f"{float(pct['p50_ms']) / floor['ms']:.2f}",
+               ref_msg_bound_ms=f"{b_ms:.3f}", ref_msg_bound_by=by,
+               peak_bytes=peak, finite=finite, card=json.dumps(card))
+    log("gnn_serve", **out)
+    require(finite and tuple(logits.shape) == (N, arch.model.n_classes),
+            f"{name}: logits {tuple(logits.shape)} finite={finite}")
+    return out
+
+
+def segment_times(graph: dict, p) -> dict:
+    """segment_sum at ogb_products' layer-2 width (F = 128, the hidden
+    states of `p`'s first layer), the shape the main path gives it: the
+    kernel against its plain version in float64 over both CSRs (the
+    backward's with its zipf hub rows), SEG_COLS columns at a time, and
+    bit-equal across two calls; the kernel's ms over the destination CSR
+    (the forward) and over the source CSR (the backward, hub rows
+    chunked), the plain version's (gather + index_add_), the library's
+    one call for the same function (`torch.sparse.mm` of the CSR
+    adjacency, cuSPARSE's SpMM) and `index_add_` alone on messages
+    gathered beforehand; bytes and operations of the bound."""
+    import torch
+    from repro_torch.kernels.ref import segment_sum_ref
+    from repro_torch.kernels.segment import csr_sum
+    csr = graph["csr"]
+    with torch.no_grad():
+        l0 = p.layers[0]
+        agg = csr_sum(graph["feats"], csr.by_dst) / torch.clamp(
+            csr.deg, min=1.0)[:, None]
+        h = torch.relu(graph["feats"] @ l0["w_self"]
+                       + agg @ l0["w_neigh"] + l0["b"])
+        del agg
+        t0 = time.perf_counter()
+        errs = [seg_check(h, c, f"ogb_products F=128 {what}", SEG_COLS)
+                for what, c in (("forward", csr.by_dst),
+                                ("backward", csr.by_src))]
+        check_s = time.perf_counter() - t0
+        d = csr.by_dst
+        ms = cuda_ms(lambda: csr_sum(h, d), reps=10)
+        bwd_ms = cuda_ms(lambda: csr_sum(h, csr.by_src), reps=10)
+        rows = d.rows()
+        plain_ms = cuda_ms(lambda: segment_sum_ref(h, d.col, rows, d.n_rows),
+                           reps=2)
+        adj = torch.sparse_csr_tensor(
+            d.indptr.to(torch.int32), d.col,
+            torch.ones(d.col.shape[0], dtype=torch.float32, device=h.device),
+            (d.n_rows, d.n_cols))
+        sp = torch.sparse.mm(adj, h)
+        sp_err = float((sp - csr_sum(h, d)).abs().max())
+        del sp
+        library_ms = cuda_ms(lambda: torch.sparse.mm(adj, h), reps=10)
+        del adj
+        msg = h[d.col.long()]
+        out = torch.zeros_like(h)
+        index_add_ms = cuda_ms(lambda: out.index_add_(0, rows, msg), reps=2)
+        del msg, out, rows
+    N, F = h.shape
+    E = d.col.shape[0]
+    nbytes = 2 * N * F * 4 + (N + 1) * 8 + E * 4
+    return dict(ms=ms, bwd_ms=bwd_ms, plain_ms=plain_ms,
+                library_ms=library_ms, index_add_ms=index_add_ms,
+                sparse_mm_max_diff=sp_err, max_abs_err=max(errs),
+                errs=errs, check_s=check_s, nbytes=nbytes, ops=E * F,
+                shape=f"N={N},E={E},F={F}")
+
+
+def serve_minibatch(draws: GnnDraws, card: str) -> dict:
+    """minibatch_lg: GNN_SEEDS seeds sampled at the shape's fanout (15, 10)
+    on the host (`NeighborSampler` over the drawn graph's CSR), the
+    blocks gathered on the card, the forward through `make_serve_step`."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.train_step import make_serve_step
+    from repro_torch.models.gnn import NeighborSampler
+    arch = get_arch(GNN_ARCH)
+    shape = arch.shape("minibatch_lg")
+    info = draws.wait("minibatch_lg")
+    a = draws.load("minibatch_lg", ("feats", "labels", "indptr", "indices"))
+    feats = torch.from_numpy(a["feats"]).cuda()
+    sampler = NeighborSampler(a["indptr"], a["indices"], seed=0)
+    rng = np.random.default_rng(0)
+    seeds = rng.choice(shape.n_nodes, GNN_SEEDS, replace=False)
+    samp = []
+    for _ in range(GNN_REPS):
+        t0 = time.perf_counter()
+        sampler.sample_ids(seeds, shape.fanout)
+        samp.append(time.perf_counter() - t0)
+    blocks = sampler.sample_blocks(seeds, shape.fanout, feats)
+    p = gnn_params(shape.d_feat)
+    fwd = make_serve_step(arch, shape)
+    base = fresh_peak()
+    with torch.no_grad():
+        lat, logits = timed_calls(lambda: fwd(p, blocks))
+    peak = torch.cuda.max_memory_allocated() - base
+    b_ms, by = gnn_forward_bound(shape, 0)
+    finite = bool(torch.isfinite(logits).all())
+    out = dict(shape="minibatch_lg", nodes=shape.n_nodes,
+               edges=int(a["indices"].shape[0]), seeds=GNN_SEEDS,
+               fanout=compact(list(shape.fanout)), **info,
+               sampler_host_p50_ms=f"{np.median(samp) * 1e3:.3f}",
+               block_bytes=blocks["nbr2_feats"].numel() * 4,
+               **{f"fwd_{k}": v for k, v in percentiles_ms(lat).items()},
+               bound_ms=f"{b_ms:.3f}", bound_by=by, peak_bytes=peak,
+               finite=finite, card=json.dumps(card))
+    log("gnn_serve", **out)
+    require(finite and tuple(logits.shape) == (GNN_SEEDS,
+                                               arch.model.n_classes),
+            f"minibatch_lg: logits {tuple(logits.shape)} finite={finite}")
+    return dict(sampler=sampler, feats=feats, labels=a["labels"],
+                seeds=seeds)
+
+
+def serve_molecule(card: str) -> dict:
+    """molecule: the batched forward of 128 graphs."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.train_step import make_serve_step
+    arch = get_arch(GNN_ARCH)
+    shape = arch.shape("molecule")
+    b = molecule_batch()
+    p = gnn_params(shape.d_feat)
+    fwd = make_serve_step(arch, shape)
+    with torch.no_grad():
+        lat, logits = timed_calls(lambda: fwd(p, b))
+    b_ms, by = gnn_forward_bound(shape, 0)
+    finite = bool(torch.isfinite(logits).all())
+    out = dict(shape="molecule", graphs=shape.batch_graphs,
+               nodes=shape.n_nodes, edges=shape.n_edges,
+               **percentiles_ms(lat), bound_ms=f"{b_ms:.5f}", bound_by=by,
+               finite=finite, card=json.dumps(card))
+    log("gnn_serve", **out)
+    require(finite and tuple(logits.shape) == (shape.batch_graphs,
+                                               arch.model.n_classes),
+            f"molecule: logits {tuple(logits.shape)} finite={finite}")
+    return out
+
+
+def phase_gnn_serve(draws: GnnDraws, card: str):
+    """[gnn_serve]: graphsage-reddit at full width on all four GNN_SHAPES
+    (launch counts reset just before and read just after), then the
+    segment-sum kernel's times at ogb_products' hidden width. Returns
+    (launches, times, the ogb_products graph on the card, the
+    minibatch_lg sampler and features)."""
+    from repro_torch.kernels import _build
+    sm, csr_sm = gnn_on_card(small_graph("full_graph_sm"))
+    info = draws.wait("ogb_products")
+    ogb, csr_s = gnn_on_card(draws.load("ogb_products", GRAPH_KEYS))
+    log("gnn_serve", graph="ogb_products", **info,
+        csr_build_s=f"{csr_s:.2f}",
+        hub_chunks_fwd_bwd=compact([ogb["csr"].by_dst.n_chunks,
+                                    ogb["csr"].by_src.n_chunks]),
+        max_in_degree=int(ogb["csr"].deg.max()))
+    _build.reset_launch_counts()
+    serve_full("full_graph_sm", sm, card)
+    serve_full("ogb_products", ogb, card)
+    mb = serve_minibatch(draws, card)
+    serve_molecule(card)
+    launches = dict(_build.launch_counts)
+    require(launches["segment_sum"] > 0, "the GNN serving path did not "
+            "launch segment_sum")
+    times = segment_times(ogb, gnn_params(100))
+    b_ms, by = bound_ms(times["nbytes"], times["ops"])
+    log("gnn_serve", kernel="segment_sum", at=times["shape"],
+        hub_rows_fwd_bwd=compact([ogb["csr"].by_dst.hub_rows.shape[0],
+                                  ogb["csr"].by_src.hub_rows.shape[0]]),
+        max_abs_err_fwd_bwd=compact([f"{e:.3e}" for e in times["errs"]]),
+        bit_equal=True, tol=TOL_SEG, check_s=f"{times['check_s']:.2f}",
+        ms=f"{times['ms']:.4f}", bwd_ms=f"{times['bwd_ms']:.4f}",
+        plain_ms=f"{times['plain_ms']:.4f}",
+        library_sparse_mm_ms=f"{times['library_ms']:.4f}",
+        sparse_mm_max_diff=f"{times['sparse_mm_max_diff']:.3e}",
+        index_add_ms=f"{times['index_add_ms']:.4f}",
+        bound_ms=f"{b_ms:.4f}", bound_by=by, launches=launches["segment_sum"],
+        card=json.dumps(card))
+    fresh_peak()
+    return launches, times, ogb, mb
+
+
+def gnn_tiny_parity():
+    """Tiny full_graph_sm (the launcher's scale): 3 steps on the card and
+    on the CPU from one state; the largest parameter difference after
+    each step within TOL_GNN_TRAIN. Returns the CPU's initial state."""
+    import torch
+    from repro_torch.distributed.train_step import state_to
+    from repro_torch.launch import train
+    _, init, cpu_step, cpu_data = train.build_trainer(
+        GNN_ARCH, "full_graph_sm", steps=3, device="cpu")
+    _, _, card_step, card_data = train.build_trainer(
+        GNN_ARCH, "full_graph_sm", steps=3, device="cuda")
+    cpu = init(torch.Generator().manual_seed(0))
+    card = state_to(cpu, "cuda")
+    diffs, losses = [], []
+    for step in range(3):
+        cpu, mc = cpu_step(cpu, cpu_data(step))
+        card, mg = card_step(card, card_data(step))
+        diffs.append(max_param_diff(cpu, card))
+        losses.append((float(mc["loss"]), float(mg["loss"])))
+    log("gnn_train", check="parity", arch=GNN_ARCH, shape="full_graph_sm",
+        scale="tiny", steps=3,
+        max_param_diff=compact([f"{d:.3e}" for d in diffs]),
+        tol=TOL_GNN_TRAIN, loss_cpu_card=compact(losses))
+    require(max(diffs) <= TOL_GNN_TRAIN,
+            f"graphsage: card and CPU parameters differ by {max(diffs)}")
+
+
+def gnn_loss_curve():
+    """Tiny full_graph_sm, 30 steps at lr 1e-2 from the CPU's seed-0
+    state on the card and on the CPU: the card's last loss below 0.8x its
+    first (tests/test_system.py's bar), each loss within TOL_GNN_LOSS of
+    the CPU's."""
+    import torch
+    from repro_torch.distributed.train_step import state_to
+    from repro_torch.launch import train
+    kw = dict(steps=30, lr=1e-2, verbose=False)
+    _, init, _, _ = train.build_trainer(GNN_ARCH, "full_graph_sm", steps=30,
+                                        lr=1e-2, device="cpu")
+    cpu_state = init(torch.Generator().manual_seed(0))
+    card = train.train_loop(GNN_ARCH, "full_graph_sm", device="cuda",
+                            init_state=state_to(cpu_state, "cuda"),
+                            **kw)["losses"]
+    cpu = train.train_loop(GNN_ARCH, "full_graph_sm", device="cpu",
+                           init_state=cpu_state, **kw)["losses"]
+    diff = max(abs(a - b) for a, b in zip(card, cpu))
+    log("gnn_train", check="loss_curve", arch=GNN_ARCH, steps=30, lr=1e-2,
+        first=f"{card[0]:.5f}", last=f"{card[-1]:.5f}",
+        ratio=f"{card[-1] / card[0]:.4f}", cpu_last=f"{cpu[-1]:.5f}",
+        max_loss_diff_vs_cpu=f"{diff:.3e}", tol=TOL_GNN_LOSS)
+    require(card[-1] < 0.8 * card[0], "graphsage: the loss did not fall "
+            "below 0.8x its first")
+    require(diff <= TOL_GNN_LOSS,
+            f"graphsage: the card's losses differ from the CPU's by {diff}")
+
+
+def gnn_restart(root: str):
+    """Tiny full_graph_sm on the card: 10 steps with a checkpoint every 4
+    and a WorkerFailure at step 6, resumed from step 4; the final state
+    bit-equal to an uninterrupted run's (the segment sum has no atomics)."""
+    import torch
+    from repro_torch.checkpoint.ckpt import _flatten
+    from repro_torch.distributed.fault_tolerance import run_with_restarts
+    from repro_torch.launch import train
+    kw = dict(steps=10, ckpt_every=4, verbose=False, device="cuda")
+    whole = train.train_loop(GNN_ARCH, "full_graph_sm", **kw)
+    ckpt_dir = os.path.join(root, "gnn_restart")
+    resumed = []
+
+    def segment(resume_step):
+        resumed.append(resume_step)
+        hist = train.train_loop(GNN_ARCH, "full_graph_sm",
+                                ckpt_dir=ckpt_dir,
+                                fail_at_step=6 if len(resumed) == 1
+                                else None, **kw)
+        segment.hist = hist
+        return hist["final_step"]
+
+    final = run_with_restarts(segment, max_restarts=1)
+    a, b = _flatten(whole["state"]), _flatten(segment.hist["state"])
+    equal = list(a) == list(b) and all(torch.equal(a[n], b[n]) for n in a)
+    log("gnn_train", check="restart", arch=GNN_ARCH, steps=10, ckpt_every=4,
+        failed_at=6, restarts=len(resumed) - 1, final_step=final,
+        leaves=len(a), bit_equal=equal)
+    require(final == 10 and segment.hist["losses"] == whole["losses"][4:],
+            f"gnn restart: resumed {resumed}, final step {final}")
+    require(equal, "gnn restart: final state not bit-equal")
+
+
+def gnn_steps(shape_name: str, batch: dict, steps: int, d_feat: int):
+    """`steps` training steps of graphsage-reddit at full width through
+    `make_train_step` on `batch`: (seconds each, losses, peak bytes above
+    the batch)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.train_step import (TrainState,
+                                                    default_optimizer,
+                                                    make_train_step)
+    import torch
+    arch = get_arch(GNN_ARCH)
+    opt = default_optimizer(total_steps=steps, base_lr=3e-3)
+    step_fn = make_train_step(arch, arch.shape(shape_name), optimizer=opt)
+    base = fresh_peak()
+    p = gnn_params(d_feat)
+    state = TrainState(p, opt[0](p))
+    lat, losses = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        lat.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    return lat, losses, peak
+
+
+def phase_gnn_train(root: str, ogb: dict, mb: dict, card: str):
+    """[gnn_train]: the GNN trainer on the card: tiny parity with the CPU,
+    the reference's loss bar, a bit-equal restart; ogb_products at full
+    width (step p50/p99 over 5 steps after the first, beside the step's
+    bound and its peak beside the message tensor the kernel never
+    makes); a minibatch_lg step on sampled blocks and a molecule step.
+    Returns the path's launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.flops import cell_terms
+    _build.reset_launch_counts()
+    gnn_tiny_parity()
+    gnn_loss_curve()
+    gnn_restart(root)
+    arch = get_arch(GNN_ARCH)
+    shape = arch.shape("ogb_products")
+    lat, losses, peak = gnn_steps("ogb_products", ogb, 6, shape.d_feat)
+    N, E = ogb["feats"].shape[0], ogb["edges"].shape[0]
+    t = cell_terms(arch, dataclasses.replace(shape, n_edges=E), chips=1,
+                   model_ways=1, dp_ways=1)
+    b_ms = max(t["t_memory"], t["t_compute"]) * 1e3
+    floor = gnn_full_floor(N, ogb["csr"].n_edges, shape.d_feat, arch.model,
+                           train=True)
+    pct = percentiles_ms(lat[1:])
+    msg_bytes = E * arch.model.d_hidden * 4
+    log("gnn_train", check="full_width", shape="ogb_products", nodes=N,
+        edges=E, first_step_ms=f"{lat[0] * 1e3:.3f}",
+        **{f"step_{k}": v for k, v in pct.items()},
+        step_floor_ms=f"{floor['ms']:.3f}", floor_by=floor["by"],
+        floor_bytes=floor["bytes"], floor_flops=floor["flops"],
+        p50_over_floor=f"{float(pct['p50_ms']) / floor['ms']:.2f}",
+        ref_msg_step_bound_ms=f"{b_ms:.3f}",
+        ref_msg_bound_by="bytes" if t["t_memory"] >= t["t_compute"] else
+        "operations", ref_msg_hbm_bytes=int(t["hbm_bytes"]),
+        ref_msg_flops=int(t["flops"]),
+        peak_bytes=peak, message_tensor_bytes=msg_bytes,
+        losses=compact([f"{x:.5f}" for x in losses]), card=json.dumps(card))
+    require(all(np.isfinite(losses)), "ogb_products: a loss is not finite")
+    require(peak < msg_bytes, f"ogb_products: peak {peak} B reaches the "
+            f"(E, H) message tensor's {msg_bytes} B")
+    mshape = arch.shape("minibatch_lg")
+    blocks = mb["sampler"].sample_blocks(mb["seeds"], mshape.fanout,
+                                         mb["feats"])
+    blocks["labels"] = torch.from_numpy(mb["labels"][mb["seeds"]]).cuda()
+    mlat, mlosses, mpeak = gnn_steps("minibatch_lg", blocks, 3,
+                                     mshape.d_feat)
+    log("gnn_train", check="minibatch", shape="minibatch_lg",
+        seeds=GNN_SEEDS, step_ms=compact([f"{x * 1e3:.3f}" for x in mlat]),
+        peak_bytes=mpeak, losses=compact([f"{x:.5f}" for x in mlosses]))
+    require(all(np.isfinite(mlosses)), "minibatch_lg: a loss is not finite")
+    del blocks
+    glat, glosses, _ = gnn_steps("molecule", molecule_batch(), 3,
+                                 arch.shape("molecule").d_feat)
+    log("gnn_train", check="molecule", graphs=128,
+        step_ms=compact([f"{x * 1e3:.3f}" for x in glat]),
+        losses=compact([f"{x:.5f}" for x in glosses]))
+    require(all(np.isfinite(glosses)), "molecule: a loss is not finite")
+    launches = dict(_build.launch_counts)
+    log("gnn_train", launches=launches["segment_sum"], card=json.dumps(card))
+    require(launches["segment_sum"] > 0,
+            "the GNN training path did not launch segment_sum")
+    fresh_peak()
+    return launches
+
+
+def gnn_tree(npz) -> dict:
+    """{"layers": [...], "w_out": ...} from `param_tree` paths."""
+    tree = {"layers": []}
+    for path in npz.files:
+        parts = path.split("/")
+        if parts[0] == "w_out":
+            tree["w_out"] = npz[path]
+            continue
+        li = int(parts[1])
+        while len(tree["layers"]) <= li:
+            tree["layers"].append({})
+        tree["layers"][li][parts[2]] = npz[path]
+    return tree
+
+
+def gnn_rank_job(rank: int, job: dict, state: dict) -> dict:
+    """gnn_load: this rank's slice of ogb_products from the run's files
+    (its partition's CSR built on the card; features, labels and mask
+    whole) and the parameters; gnn_loss: the partitioned loss and its
+    gradients once to warm up, then once timed after a barrier. The
+    float32 wire calls `sharded_full_loss_fn`; the bfloat16 wire, the
+    default of the step factories' `grid=` path, goes through
+    `train_step.make_loss_fn(arch, shape, grid)`."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.core.sharded_search import ProcessGrid
+    from repro_torch.distributed.train_step import make_loss_fn
+    from repro_torch.kernels import _build
+    from repro_torch.models.gnn import gnn_params_from_jax
+    from repro_torch.models.gnn_sharded import local_csr, \
+        sharded_full_loss_fn
+    from repro_torch.optim.adamw import param_tree
+    arch = get_arch(GNN_ARCH)
+    cfg = arch.model
+    if job["op"] == "gnn_load":
+        t0 = time.perf_counter()
+        d = job["dir"]
+        batch = {k: torch.from_numpy(np.load(os.path.join(d, f"{k}.npy")))
+                 .cuda() for k in ("feats", "labels", "mask")}
+        part = np.load(os.path.join(d, "edges_part.npy"), mmap_mode="r")
+        n = batch["feats"].shape[0]
+        batch["csr"] = local_csr(np.ascontiguousarray(part[rank]), n,
+                                 part.shape[0], rank, device="cuda")
+        batch["edges"] = None
+        with np.load(job["params"]) as z:
+            params = gnn_params_from_jax(gnn_tree(z), device="cuda")
+        state["gnn"] = dict(batch=batch, params=params, n=n,
+                            grid=ProcessGrid(tuple(job["grid"])))
+        torch.cuda.synchronize()
+        return {"load_s": time.perf_counter() - t0,
+                "edges": batch["csr"].n_edges}
+    s = state["gnn"]
+    wire = getattr(torch, job["wire"])
+    if wire == torch.float32:
+        fn = sharded_full_loss_fn(s["grid"], cfg, s["n"], wire_dtype=wire)
+    else:
+        shape = arch.shape("ogb_products")
+        require(shape.n_nodes == s["n"], "the graph is not ogb_products'")
+        fn = make_loss_fn(arch, shape, s["grid"])
+    tree = param_tree(s["params"])
+
+    def run():
+        loss, m = fn(s["params"], s["batch"])
+        return loss, m, torch.autograd.grad(loss, list(tree.values()))
+    run()
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, m, grads = run()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    n_local = -(-s["n"] // s["grid"].world)
+    return {"loss": float(loss.detach()), "acc": float(m["acc"]),
+            "grads": {k: g.cpu().numpy() for k, g in zip(tree, grads)},
+            "step_s": step_s, "launches": dict(_build.launch_counts),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "gathered_bytes": (cfg.n_layers - 1) * s["grid"].world
+            * n_local * cfg.d_hidden * wire.itemsize}
+
+
+def phase_gnn_sharded(root: str, draws: GnnDraws, ogb: dict, card: str):
+    """[gnn_sharded]: ogb_products' full-width graph partitioned by
+    destination over 4 gloo ranks (grid (2, 2), time-slicing cuda:0; each
+    reads its partition from the run's files), the partitioned loss and
+    gradients against the one-process `gnn_full_loss` on the card: with
+    the float32 wire within TOL_SHARDED_LOSS and TOL_SHARDED_GRAD (the
+    reference test's bar), with the bfloat16 wire the deviations; step
+    wall, bytes gathered, per-rank peak. Returns the ranks' launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.gnn import gnn_full_loss
+    from repro_torch.optim.adamw import param_tree
+    cfg = get_arch(GNN_ARCH).model
+    p = gnn_params(ogb["feats"].shape[1])
+    tree = param_tree(p)
+    loss, m = gnn_full_loss(p, ogb, cfg)
+    ref = {k: g.cpu().numpy() for k, g in zip(
+        tree, torch.autograd.grad(loss, list(tree.values())))}
+    ref_loss, ref_acc = float(loss), float(m["acc"])
+    params_path = os.path.join(root, "gnn_params.npz")
+    np.savez(params_path, **{k: t.detach().cpu().numpy()
+                             for k, t in tree.items()})
+    del loss, m, p, tree
+    fresh_peak()
+    world = RankWorld(int(np.prod(GNN_GRID)), root, "gnn")
+    launches = {}
+    try:
+        loads = world.run({"op": "gnn_load", "dir":
+                           draws.dirs["ogb_products"],
+                           "params": params_path, "grid": GNN_GRID})
+        for wire in ("float32", "bfloat16"):
+            ans = world.run({"op": "gnn_loss", "wire": wire})
+            losses = {a["loss"] for a in ans.values()}
+            g0 = ans[0]["grads"]
+            same = all(all(np.array_equal(a["grads"][k], g0[k]) for k in g0)
+                       for a in ans.values())
+            rel = max(float(np.abs(g0[k] - ref[k]).max()
+                            / (np.abs(ref[k]).max() + 1e-9)) for k in ref)
+            dloss = abs(ans[0]["loss"] - ref_loss)
+            log("gnn_sharded", wire=wire, grid=compact(list(GNN_GRID)),
+                loss=f"{ans[0]['loss']:.6f}", ref_loss=f"{ref_loss:.6f}",
+                loss_diff=f"{dloss:.3e}", grad_rel_diff=f"{rel:.3e}",
+                acc=f"{ans[0]['acc']:.4f}", ref_acc=f"{ref_acc:.4f}",
+                ranks_agree=len(losses) == 1 and same,
+                step_ms=compact([f"{ans[r]['step_s'] * 1e3:.1f}"
+                                 for r in sorted(ans)]),
+                gathered_bytes=ans[0]["gathered_bytes"],
+                peak_bytes=compact([ans[r]["peak_bytes"]
+                                    for r in sorted(ans)]),
+                load_s=compact([f"{loads[r]['load_s']:.2f}"
+                                for r in sorted(loads)]),
+                rank_edges=compact([loads[r]["edges"]
+                                    for r in sorted(loads)]),
+                world_start_s=f"{world.start_s:.2f}", card=json.dumps(card))
+            require(len(losses) == 1 and same,
+                    f"{wire}: the ranks' losses or gradients differ")
+            if wire == "float32":
+                require(dloss <= TOL_SHARDED_LOSS,
+                        f"sharded loss off by {dloss}")
+                require(rel <= TOL_SHARDED_GRAD,
+                        f"sharded gradients off by {rel} (relative)")
+                add_launches(launches, ans)
+    finally:
+        world.close()
+    require(launches.get("segment_sum", 0) > 0,
+            "the sharded GNN path did not launch segment_sum")
+    return launches
+
+
 def main() -> int:
     faulthandler.enable()          # a crash in native code prints its stack
     # PyTorch tears CUPTI down after each profiler window and sets it up
@@ -4199,9 +5255,26 @@ def run_phases(root: str) -> int:
     tower_launches = timed("recsys_towers", phase_recsys_towers)
     timed("train", phase_train, root)
     card = card_line()
-    timed("lm_parity", phase_lm_parity, card)
-    timed("lm_serve", phase_lm_serve, card)
-    timed("lm_train", phase_lm_train, root, card)
+    # the full-width graphs are drawn on the host while the LM phases run
+    draws = GnnDraws(root)
+    try:
+        timed("lm_parity", phase_lm_parity, card)
+        timed("lm_serve", phase_lm_serve, card)
+        timed("lm_train", phase_lm_train, root, card)
+        errs["segment_sum"] = timed("gnn_parity", phase_gnn_parity, card)
+        gnn_launches, seg_times, ogb, mb = timed("gnn_serve",
+                                                 phase_gnn_serve, draws,
+                                                 card)
+        errs["segment_sum"] = max(errs["segment_sum"],
+                                  seg_times["max_abs_err"])
+        gnn_train_launches = timed("gnn_train", phase_gnn_train, root, ogb,
+                                   mb, card)
+        del mb
+        gnn_sharded_launches = timed("gnn_sharded", phase_gnn_sharded,
+                                     root, draws, ogb, card)
+        del ogb
+    finally:
+        draws.close()
     log("phase_s", total=round(sum(PHASE_S.values()), 2),
         by_phase=compact(PHASE_S))
     log("profiler", windows=len(PROFILED_LAUNCHES),
@@ -4224,13 +5297,19 @@ def run_phases(root: str) -> int:
                            ("pq_adc_q8", bulk, BULK_SHAPE)):
         nbytes, n_ops = adc_bytes_ops(*shape)
         times[name] = dict(t[name], nbytes=nbytes, ops=n_ops)
+    launches["segment_sum"] = gnn_launches["segment_sum"]
+    times["segment_sum"] = seg_times
     kernels = []
-    for name in REPLACES:
+    for name in (*REPLACES, "segment_sum"):
         t = times[name]
         b, by = bound_ms(t["nbytes"], t["ops"])
+        gnn = name == "segment_sum"
         kernels.append({
-            "name": name, "route": "cuda", "source": SRC,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": GNN_SRC if gnn else SRC,
+            "replaces": GNN_REPLACES if gnn else REPLACES[name],
+            "launches": launches[name],
+            "launches_gnn_train": gnn_train_launches.get(name, 0),
+            "launches_gnn_sharded": gnn_sharded_launches.get(name, 0),
             "launches_storage": storage_launches.get(name, 0),
             "launches_dynamic": dyn_launches.get(name, 0),
             "launches_service": svc_launches.get(name, 0),
@@ -4239,7 +5318,8 @@ def run_phases(root: str) -> int:
             "launches_towers": tower_launches.get(name, 0),
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b, "bound_by": by,
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            **({"index_add_ms": t["index_add_ms"]} if gnn else {})})
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,9 @@
 recommender configurations (`RecsysConfig`; `SASREC`, `DLRM_RM2`,
 `DCN_V2`, `WIDE_DEEP`; the `REC_SHAPES` cells), the language models
 (`MoEConfig`, `LMConfig`; `QWEN3_1P7B`, `H2O_DANUBE_1P8B`, `QWEN2_1P5B`,
-`QWEN2_MOE_A2P7B`, `LLAMA4_SCOUT_17B_A16E`; the `LM_SHAPES` cells) and
-the `--arch` registry (`get_arch`, `list_archs`: copies of
-`repro.configs.registry`'s for the families the port runs)."""
+`QWEN2_MOE_A2P7B`, `LLAMA4_SCOUT_17B_A16E`; the `LM_SHAPES` cells), the GNN (`GNNConfig`,
+`GRAPHSAGE_REDDIT`; the `GNN_SHAPES` cells) and the `--arch` registry (`get_arch`, `list_archs`: copies of
+`repro.configs.registry`'s)."""
 from __future__ import annotations
 
 import dataclasses
@@ -344,6 +344,50 @@ LLAMA4_SCOUT_17B_A16E = LMConfig(
 
 
 # ---------------------------------------------------------------------------
+# graph networks (copies of `repro.configs.base.GNNConfig`, `GNN_SHAPES`
+# and `repro.configs.graphsage_reddit`)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_layers: int = 2
+    d_hidden: int = 128
+    aggregator: str = "mean"        # mean | max | sum
+    sample_sizes: Tuple[int, ...] = (25, 10)
+    n_classes: int = 41             # reddit has 41 classes
+    pq_features: bool = False       # beyond-paper: PQ-compressed feature store
+    dtype: str = "float32"
+
+    def scaled(self, **kw) -> "GNNConfig":
+        return dataclasses.replace(self, **kw)
+
+
+GNN_SHAPES = (
+    ShapeConfig("full_graph_sm", "gnn_full", n_nodes=2708, n_edges=10556,
+                d_feat=1433),
+    ShapeConfig("minibatch_lg", "gnn_minibatch", n_nodes=232965,
+                n_edges=114615892, batch_nodes=1024, fanout=(15, 10),
+                d_feat=602),
+    ShapeConfig("ogb_products", "gnn_full", n_nodes=2449029,
+                n_edges=61859140, d_feat=100),
+    ShapeConfig("molecule", "gnn_batched", n_nodes=30, n_edges=64,
+                batch_graphs=128, d_feat=64),
+)
+
+# graphsage-reddit [arXiv:1706.02216; paper] — 2-layer mean aggregator
+GRAPHSAGE_REDDIT = GNNConfig(
+    name="graphsage-reddit",
+    n_layers=2,
+    d_hidden=128,
+    aggregator="mean",
+    sample_sizes=(25, 10),
+    n_classes=41,
+)
+
+
+# ---------------------------------------------------------------------------
 # the --arch registry (copy of `repro.configs.base.ArchConfig` and
 # `repro.configs.registry`)
 # ---------------------------------------------------------------------------
@@ -387,10 +431,6 @@ def _lm(arch_id: str, model: LMConfig, source: str,
                       skip_reason=skip_reason, source=source)
 
 
-# the GNN architecture of the reference's registry: `models/gnn.py` and
-# `models/gnn_sharded.py` are not ported yet
-_NOT_PORTED_ARCHS = ("graphsage-reddit",)
-
 _REGISTRY: Dict[str, ArchConfig] = {
     "qwen3-1.7b": _lm(
         "qwen3-1.7b", QWEN3_1P7B, "hf:Qwen/Qwen3-8B; hf",
@@ -409,6 +449,9 @@ _REGISTRY: Dict[str, ArchConfig] = {
     "llama4-scout-17b-a16e": _lm(
         "llama4-scout-17b-a16e", LLAMA4_SCOUT_17B_A16E,
         "hf:meta-llama/Llama-4-Scout-17B-16E; unverified"),
+    "graphsage-reddit": ArchConfig(
+        arch_id="graphsage-reddit", family="gnn", model=GRAPHSAGE_REDDIT,
+        shapes=GNN_SHAPES, source="arXiv:1706.02216; paper"),
     "dlrm-rm2": _rec("dlrm-rm2", DLRM_RM2, "arXiv:1906.00091; paper"),
     "sasrec": _rec("sasrec", SASREC, "arXiv:1808.09781; paper"),
     "dcn-v2": _rec("dcn-v2", DCN_V2, "arXiv:2008.13535; paper"),
@@ -428,14 +471,8 @@ ASSIGNED_ARCHS: List[str] = list(_ORDER[:10])
 
 
 def get_arch(arch_id: str) -> ArchConfig:
-    """The ArchConfig of an `--arch` id. Unknown ids raise KeyError as the
-    reference's registry does; the GNN id raises NotImplementedError (its
-    models are not ported)."""
-    if arch_id in _NOT_PORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported: the GNN models "
-            "(models/gnn.py, models/gnn_sharded.py) and their training "
-            "branches are missing from repro_torch")
+    """The ArchConfig of an `--arch` id; unknown ids raise KeyError, as
+    the reference's registry does."""
     try:
         return _REGISTRY[arch_id]
     except KeyError:

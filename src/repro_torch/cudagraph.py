@@ -10,6 +10,8 @@ to eager launches.
 """
 from __future__ import annotations
 
+import gc
+
 import torch
 
 from repro_torch.kernels import _build
@@ -35,10 +37,21 @@ class Graph:
 
     def __init__(self, fn, *, pool=None):
         self.graph = torch.cuda.CUDAGraph()
-        with _build.recorded_launches() as launches:
-            with torch.cuda.graph(self.graph, pool=pool,
-                                  capture_error_mode="thread_local"):
-                self.out = fn()
+        # A graph that the cyclic collector destroys while this thread
+        # captures (one left in a reference cycle by an index dropped
+        # earlier) invalidates the capture (cudaErrorStreamCaptureInvalidated;
+        # torch no longer collects garbage before a capture): the collector
+        # stays off until the capture ends.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with _build.recorded_launches() as launches:
+                with torch.cuda.graph(self.graph, pool=pool,
+                                      capture_error_mode="thread_local"):
+                    self.out = fn()
+        finally:
+            if collecting:
+                gc.enable()
         self.launches = dict(launches)
 
     @property

@@ -1,8 +1,10 @@
-"""Train state and the train / serve step factories of the recommender
-and language-model families (port of `repro.distributed.train_step`).
+"""Train state and the train / serve step factories of the recommender,
+language-model and GNN families (port of `repro.distributed.train_step`).
 
-The GNN family raises NotImplementedError: `models/gnn.py` and
-`models/gnn_sharded.py` are not ported. A train step runs the loss
+The reference picks the GNN's sharded full-graph loss from the
+environment (`REPRO_GNN=sharded`) and its global mesh; the port takes the
+process grid as an argument (`grid=`, a `core.sharded_search.
+ProcessGrid`). A train step runs the loss
 forward and backward (autograd; the recommender tables get sparse
 gradients, an LM's embedding a dense one) and the optimizer, which
 updates the parameters and its state in place, as the reference's jitted
@@ -28,18 +30,17 @@ class TrainState(NamedTuple):
     opt: OptState
 
 
-def _not_ported(family: str):
-    return NotImplementedError(
-        f"the {family} family is not ported: repro_torch has no "
-        "models/gnn.py or models/gnn_sharded.py")
-
-
 def default_optimizer(total_steps: int = 10000, base_lr: float = 3e-4):
     return make_optimizer(warmup_cosine(base_lr, min(2000, total_steps // 10),
                                         total_steps))
 
 
-def make_loss_fn(arch: ArchConfig, shape: ShapeConfig) -> Callable:
+def make_loss_fn(arch: ArchConfig, shape: ShapeConfig,
+                 grid=None) -> Callable:
+    """The family's loss(params, batch) -> (loss, metrics). A GNN
+    full-graph shape with a `grid` takes the partitioned loss
+    (`gnn_sharded.sharded_full_loss_fn`; batch["edges"] from
+    `partition_edges`)."""
     if arch.family == "lm":
         from repro_torch.models.transformer import lm_loss
         return lambda p, b: lm_loss(p, b, arch.model)
@@ -47,7 +48,15 @@ def make_loss_fn(arch: ArchConfig, shape: ShapeConfig) -> Callable:
         from repro_torch.models.recsys import rec_loss
         return lambda p, b: rec_loss(p, b, arch.model)
     if arch.family == "gnn":
-        raise _not_ported(arch.family)
+        from repro_torch.models import gnn as G
+        if shape.kind == "gnn_minibatch":
+            return lambda p, b: G.gnn_minibatch_loss(p, b, arch.model)
+        if shape.kind == "gnn_batched":
+            return lambda p, b: G.gnn_batched_loss(p, b, arch.model)
+        if grid is not None:
+            from repro_torch.models.gnn_sharded import sharded_full_loss_fn
+            return sharded_full_loss_fn(grid, arch.model, shape.n_nodes)
+        return lambda p, b: G.gnn_full_loss(p, b, arch.model)
     raise ValueError(arch.family)
 
 
@@ -76,13 +85,13 @@ def _add(a: Optional[torch.Tensor], b: Optional[torch.Tensor]):
 
 
 def make_train_step(arch: ArchConfig, shape: ShapeConfig, optimizer=None,
-                    microbatches: int = 1) -> Callable:
+                    microbatches: int = 1, grid=None) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics); the state is
     updated in place. With `microbatches` > 1 the batch is cut into that
     many consecutive slices; their float32 gradients are summed and
     divided by the count, the loss is the mean of theirs and the other
-    metrics are the last slice's."""
-    loss_fn = make_loss_fn(arch, shape)
+    metrics are the last slice's. `grid`: see `make_loss_fn`."""
+    loss_fn = make_loss_fn(arch, shape, grid)
     _, opt_update = optimizer or default_optimizer()
 
     def train_step(state: TrainState, batch: dict):
@@ -111,8 +120,9 @@ def make_train_step(arch: ArchConfig, shape: ShapeConfig, optimizer=None,
 
 def make_serve_step(arch: ArchConfig, shape: ShapeConfig) -> Callable:
     """lm: `lm_prefill` (p, b) -> logits, or `lm_decode_step` as
-    step(p, cache, b) -> (logits, cache); recsys: CTR logits or the
-    retrieval top-100."""
+    step(p, cache, b) -> (logits, cache); gnn: the full-graph, batched or
+    minibatch forward's logits; recsys: CTR logits or the retrieval
+    top-100."""
     if arch.family == "lm":
         from repro_torch.models import transformer as T
         if shape.kind == "lm_prefill":
@@ -124,7 +134,14 @@ def make_serve_step(arch: ArchConfig, shape: ShapeConfig) -> Callable:
             return step
         raise ValueError((arch.family, shape.kind))
     if arch.family == "gnn":
-        raise _not_ported(arch.family)
+        from repro_torch.models import gnn as G
+        if shape.kind == "gnn_full":
+            return lambda p, b: G.gnn_full_forward(
+                p, b["feats"], b["edges"], arch.model, csr=b.get("csr"))
+        if shape.kind == "gnn_batched":
+            return lambda p, b: G.gnn_batched_forward(
+                p, b["feats"], b["edges"], arch.model, csr=b.get("csr"))
+        return lambda p, b: G.gnn_minibatch_forward(p, b, arch.model)
     if arch.family != "recsys":
         raise ValueError((arch.family, shape.kind))
     from repro_torch.models import recsys as R
@@ -159,11 +176,15 @@ def _leaves(tree, prefix: str = "") -> Dict[str, np.ndarray]:
 def train_state_from_jax(state, *, device: DeviceLike = None) -> TrainState:
     """The reference's TrainState (params and OptState, as numpy arrays or
     anything `np.asarray` takes) as the port's, on `device`: an LM's
-    (params with `embed` and `layers`) or a recommender's."""
+    (params with `embed` and `layers`), a GNN's (`layers` and `w_out`) or
+    a recommender's."""
     dev = resolve_device(device)
     if "embed" in state.params and "layers" in state.params:
         from repro_torch.models.transformer import lm_params_from_jax
         params = lm_params_from_jax(state.params, device=dev)
+    elif "w_out" in state.params and "layers" in state.params:
+        from repro_torch.models.gnn import gnn_params_from_jax
+        params = gnn_params_from_jax(state.params, device=dev)
     else:
         from repro_torch.models.recsys import recsys_params_from_jax
         params = recsys_params_from_jax(state.params, device=dev)

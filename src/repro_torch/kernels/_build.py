@@ -1,8 +1,11 @@
-"""Build and bind the CUDA kernels (`csrc/aisaq_kernels.cu`).
+"""Build and bind the CUDA kernels (`csrc/aisaq_kernels.cu`: the search
+path's; `csrc/gnn_kernels.cu`: the GNN family's segment sum).
 
-At first use, `nvcc` compiles the source for `sm_90a` into a shared library
-with a plain C interface under `kernels/build/` (listed in .gitignore),
-keyed by a hash of the source and the flags, and ctypes loads it. Nothing
+At first use, `nvcc` compiles each source for `sm_90a` into an object, all
+of them at once in parallel processes, and links them into one shared
+library with a plain C interface under `kernels/build/` (listed in
+.gitignore), keyed by a hash of the sources and the flags, and ctypes
+loads it. Nothing
 here runs at import time, so the module imports on machines without
 `nvcc` or a card.
 
@@ -28,7 +31,8 @@ from pathlib import Path
 import torch
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = (_HERE / "csrc" / "aisaq_kernels.cu",)
+SOURCES = (_HERE / "csrc" / "aisaq_kernels.cu",
+           _HERE / "csrc" / "gnn_kernels.cu")
 BUILD_DIR = _HERE / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -50,10 +54,13 @@ _SIGNATURES = {
                      _I, _I, _I, _P, _P],
     "aisaq_adc_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P],
+    "gnn_segment_sum": [_P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _P,
+                        _P, _P],
+    "gnn_segment_occupancy": [_P],
 }
 
 KERNELS = ("fused_hop_f32", "fused_hop_int8", "pq_lut", "rerank", "pq_adc",
-           "pq_adc_q8")
+           "pq_adc_q8", "segment_sum")
 launch_counts = {name: 0 for name in KERNELS}
 build_seconds = None          # wall time of the nvcc run, None if cached
 _lock = threading.Lock()
@@ -116,18 +123,39 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless a library for this hash exists."""
+    """Compile the sources unless a library for this hash exists: one nvcc
+    a source, started together, then one link."""
     global build_seconds
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    procs = [subprocess.Popen([_nvcc(), *compile_flags, "-c", "-o", str(o),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, o in zip(SOURCES, objs)]
+    errors = []
+    for src, p in zip(SOURCES, procs):
+        _, err = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"{src.name} ({p.returncode}):\n{err}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                              *map(str, objs)], capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out

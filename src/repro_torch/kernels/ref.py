@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of every kernel of the device search path.
+"""Plain PyTorch versions of every kernel of the device search path, and of
+the GNN family's segment sum (`segment_sum_ref`).
 
-Twins of `repro.kernels.ref`, with the query batch written out where the
-reference is vmapped. The CPU tests hold them against the JAX package, the
+The search path's are twins of `repro.kernels.ref`, with the query batch
+written out where the reference is vmapped. The CPU tests hold them against the JAX package, the
 wrappers run them on CPU tensors, and `chip_smoke.py` holds the CUDA
 kernels against them on the card.
 
@@ -261,3 +262,13 @@ def rerank_rows_ref(queries: torch.Tensor, chunk_words: torch.Tensor,
                        layout)
     d = rerank_ref(queries, cand, metric=metric)
     return torch.where(ids >= 0, d, torch.inf)
+
+
+def segment_sum_ref(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                    n_rows: int) -> torch.Tensor:
+    """(n_rows, F): out[dst[e]] += x[src[e]] over the edges in their order
+    (`index_add_`), the plain twin of `segment.segment_sum`'s kernel
+    (`csrc/gnn_kernels.cu`). Every id must be in range: `prepare_csr`
+    drops or clamps the others as the reference does."""
+    out = torch.zeros((n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    return out.index_add_(0, dst.long(), x[src.long()])

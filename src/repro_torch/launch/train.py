@@ -1,6 +1,6 @@
-"""Training launcher of the recommender towers and the language models:
-state init, checkpoint and restart, heartbeats, deterministic data resume
-(port of `repro.launch.train`, recommender and LM families).
+"""Training launcher of the recommender towers, the language models and
+the GNN: state init, checkpoint and restart, heartbeats, deterministic
+data resume (port of `repro.launch.train`).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \
         --shape train_batch --steps 100 [--ckpt-dir DIR] [--scale tiny|full]
@@ -14,7 +14,15 @@ most 2,000 rows and the batch to at most 64, as the reference does;
 (train_batch: 65,536). LMs: `--scale tiny` is the reference's `tiny_lm`
 (4 layers, d_model 128, vocab 2,048, float32, no MoE) at sequence 128
 and batch 4; `--scale full` keeps the published model and the shape's
-sequence. `--batch` cuts the shape's batch (train_4k's is 256).
+sequence. `--batch` cuts the shape's batch (train_4k's is 256). GNN
+(`--arch graphsage-reddit --shape full_graph_sm`, or `ogb_products`):
+`--scale tiny` is the reference's (d_hidden 32, 8 classes, a 256-node
+graph of 2,048 edges, 32 features), `--scale full` the published model on
+the shape's node count; the data is one `make_graph` draw, placed on the
+device with its CSRs once and fed at every step. The reference's launcher
+has no stream of sampled blocks or of batched graphs, so `minibatch_lg`
+and `molecule` raise ValueError here (the reference fails later, in its
+loss).
 Parameters are drawn from a seeded `torch.Generator`, or come from a
 reference state (`train_state_from_jax`, or a checkpoint of either package
 in `--ckpt-dir`, which a run resumes from).
@@ -44,13 +52,18 @@ def tiny_lm(cfg):
                       moe=None, dtype="float32")
 
 
-def _make_init(arch):
-    """(generator, device) -> parameters (the LM and recommender branches
-    of the reference's `launch.inputs._make_init`)."""
+def _make_init(arch, shape=None):
+    """(generator, device) -> parameters (the reference's
+    `launch.inputs._make_init`); a GNN's input width is the shape's
+    d_feat."""
     if arch.family == "lm":
         from repro_torch.models.transformer import init_lm
         return lambda generator, device: init_lm(
             arch.model, generator=generator, device=device)
+    if arch.family == "gnn":
+        from repro_torch.models.gnn import init_gnn
+        return lambda generator, device: init_gnn(
+            arch.model, shape.d_feat, generator=generator, device=device)
     from repro_torch.models.recsys import init_recsys
     return lambda generator, device: init_recsys(
         arch.model, generator=generator, device=device)
@@ -66,14 +79,26 @@ def build_trainer(arch_id: str, shape_name: str, *, scale: str = "tiny",
     allocates nothing, for `restore` to fill). `batch`, when given, cuts
     the shape's batch (an LM's global_batch, a recommender's batch)."""
     dev = resolve_device(device)
-    arch = get_arch(arch_id)           # the GNN id raises here
-    if arch.family not in ("lm", "recsys"):
+    arch = get_arch(arch_id)
+    if arch.family not in ("lm", "recsys", "gnn"):
         raise ValueError(f"{arch_id} ({arch.family}) has no training path")
     shape = arch.shape(shape_name)
+    if arch.family == "gnn" and shape.kind != "gnn_full":
+        raise ValueError(
+            f"{arch_id} {shape_name} ({shape.kind}) needs a stream of "
+            + ("sampled blocks (NeighborSampler.sample_blocks)"
+               if shape.kind == "gnn_minibatch" else "batched graphs")
+            + ", which the launcher does not have: it feeds one whole "
+            "graph (make_graph)")
     if scale == "tiny":
         if arch.family == "lm":
             arch = dataclasses.replace(arch, model=tiny_lm(arch.model))
             shape = dataclasses.replace(shape, seq_len=128, global_batch=4)
+        elif arch.family == "gnn":
+            arch = dataclasses.replace(
+                arch, model=arch.model.scaled(d_hidden=32, n_classes=8))
+            shape = dataclasses.replace(shape, n_nodes=256, n_edges=2048,
+                                        d_feat=32)
         else:
             # keep embed_dim (DLRM ties it to bot_mlp[-1]); shrink tables
             arch = dataclasses.replace(arch, model=arch.model.scaled(
@@ -84,20 +109,27 @@ def build_trainer(arch_id: str, shape_name: str, *, scale: str = "tiny",
         shape = dataclasses.replace(
             shape, **{"global_batch" if arch.family == "lm" else "batch":
                       batch})
-    init_fn = _make_init(arch)
+    init_fn = _make_init(arch, shape)
     opt = default_optimizer(total_steps=steps, base_lr=lr)
     opt_init, _ = opt
     step_fn = make_train_step(arch, shape, optimizer=opt,
                               microbatches=microbatches)
     from repro_torch.data.pipeline import ClickStream, SasrecStream, \
-        TokenStream
-    if arch.family == "lm":
-        ds = TokenStream(arch.model.vocab_size, shape.seq_len,
-                         shape.global_batch)
+        TokenStream, make_graph
+    if arch.family == "gnn":
+        from repro_torch.kernels.segment import prepare_csr
+        g = make_graph(shape.n_nodes, max(2, shape.n_edges // shape.n_nodes),
+                       shape.d_feat, arch.model.n_classes)
+        graph = {k: to_tensor(v, dev) for k, v in g.items()}
+        graph["csr"] = prepare_csr(graph["edges"], shape.n_nodes)
+        data_gen = lambda step: graph              # noqa: E731
+    elif arch.family == "lm":
+        data_gen = TokenStream(arch.model.vocab_size, shape.seq_len,
+                               shape.global_batch).batch_at
     elif arch.model.kind == "sasrec":
-        ds = SasrecStream(arch.model, shape.batch)
+        data_gen = SasrecStream(arch.model, shape.batch).batch_at
     else:
-        ds = ClickStream(arch.model, shape.batch)
+        data_gen = ClickStream(arch.model, shape.batch).batch_at
 
     def state_init(generator: Optional[torch.Generator] = None,
                    device: DeviceLike = None) -> TrainState:
@@ -107,7 +139,7 @@ def build_trainer(arch_id: str, shape_name: str, *, scale: str = "tiny",
         params = init_fn(g, d)
         return TrainState(params, opt_init(params))
 
-    return arch, state_init, step_fn, ds.batch_at
+    return arch, state_init, step_fn, data_gen
 
 
 def train_loop(arch_id: str, shape_name: str, *, steps: int,
@@ -146,7 +178,8 @@ def train_loop(arch_id: str, shape_name: str, *, steps: int,
     t0 = time.time()
     try:
         for step in range(start, steps):
-            batch = {k: to_tensor(v, dev)
+            # arrays go to the device; a graph's CSRs are there already
+            batch = {k: to_tensor(v, dev) if hasattr(v, "shape") else v
                      for k, v in data_gen(step).items()}
             if fail_at_step is not None and step == fail_at_step:
                 err = WorkerFailure(f"injected failure at step {step}")

@@ -448,7 +448,7 @@ def test_cluster_worker_stats_over_the_wire(cluster, small_corpus):
     # the wrappers run their plain versions)
     assert set(st["kernel_launches"]) == {
         "fused_hop_f32", "fused_hop_int8", "pq_lut", "rerank", "pq_adc",
-        "pq_adc_q8"}
+        "pq_adc_q8", "segment_sum"}
     assert not any(st["kernel_launches"].values())
     top = c.stats()
     assert top["serving"] == 2 and top["quarantined"] == 0

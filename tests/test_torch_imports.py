@@ -69,6 +69,10 @@ TRAIN_MODULES = ("data.pipeline", "optim", "optim.adamw", "checkpoint",
 #: the modules of the language-model slice
 LM_MODULES = ("configs", "models.layers", "models.moe", "models.transformer")
 
+#: the modules of the GNN slice
+GNN_MODULES = ("kernels.segment", "models.gnn", "models.gnn_sharded",
+               "launch.flops", "launch.inputs")
+
 _BLOCKER = """
 import importlib, json, sys
 class _Blocked:
@@ -94,7 +98,7 @@ def blocked_imports():
     storage module in turn: module -> 'ok' or the error."""
     code = _BLOCKER.format(forbidden=set(FORBIDDEN),
                            modules=STORAGE_MODULES + TRAIN_MODULES
-                           + LM_MODULES)
+                           + LM_MODULES + GNN_MODULES)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -118,6 +122,44 @@ def test_train_modules_import_with_jax_and_repro_blocked(blocked_imports,
 def test_lm_modules_import_with_jax_and_repro_blocked(blocked_imports,
                                                       module):
     assert blocked_imports[module] == "ok"
+
+
+@pytest.mark.parametrize("module", GNN_MODULES)
+def test_gnn_modules_import_with_jax_and_repro_blocked(blocked_imports,
+                                                       module):
+    assert blocked_imports[module] == "ok"
+
+
+def test_gnn_entry_points_need_a_card_or_device_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points run on it")
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.segment import prepare_csr
+    from repro_torch.launch import train
+    from repro_torch.models import gnn as G
+    from repro_torch.models.gnn_sharded import local_csr
+    cfg = get_arch("graphsage-reddit").model
+    edges = np.array([[0, 1], [2, 1]], np.int32)
+    sampler = G.NeighborSampler.from_edges(edges, 3)
+    g = torch.Generator().manual_seed(0)
+    calls = [
+        lambda **kw: G.init_gnn(cfg, 4, generator=g, **kw),
+        lambda **kw: prepare_csr(edges, 3, **kw),
+        lambda **kw: local_csr(edges[None], 3, 1, 0, **kw),
+        lambda **kw: sampler.sample_blocks(np.array([1]), (2, 2),
+                                           np.ones((3, 4), np.float32), **kw),
+        lambda **kw: train.build_trainer("graphsage-reddit", "full_graph_sm",
+                                         **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        call(device="cpu")
+    p = G.init_gnn(cfg, 4, generator=g, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        G.gnn_params_from_jax({"layers": [
+            {k: t.detach().numpy() for k, t in lp.items()}
+            for lp in p.layers], "w_out": p.w_out.detach().numpy()})
 
 
 def test_lm_entry_points_need_a_card_or_device_cpu():
@@ -187,6 +229,7 @@ def test_kernel_modules_import_without_building():
     """Nothing is compiled at import: the library is built at first launch."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import chunk_adc, ops, pq_lut, rerank  # noqa
+    from repro_torch.kernels import segment  # noqa
 
     assert _build._lib is None
     assert _build.library_path().name.startswith("aisaq_kernels_")

@@ -22,6 +22,7 @@ import torch
 
 from repro.checkpoint import ckpt as jckpt
 from repro.configs import get_arch as jget_arch
+from repro.configs import registry as jregistry
 from repro.distributed import train_step as jts
 from repro.launch import train as jtrain
 from repro.models import transformer as jT
@@ -133,10 +134,10 @@ def test_serve_steps_and_trainer_take_the_lm_family():
     _, _, _, data = train.build_trainer("h2o-danube-1.8b", "train_4k",
                                         device="cpu", batch=2)
     assert data(0)["tokens"].shape == (2, 128)
-    with pytest.raises(NotImplementedError, match="models/gnn.py"):
-        configs.get_arch("graphsage-reddit")
-    assert [a for a in configs.list_archs()
-            if a in configs._NOT_PORTED_ARCHS] == ["graphsage-reddit"]
+    # the GNN id, ported since, is the reference's too
+    assert dataclasses.asdict(configs.get_arch("graphsage-reddit")) == \
+        dataclasses.asdict(jget_arch("graphsage-reddit"))
+    assert configs.list_archs() == jregistry.list_archs()
 
 
 def _bits(a):

@@ -147,11 +147,10 @@ def test_registry_lists_and_refusals():
         configs.get_arch("no-such-arch")
     with pytest.raises(KeyError, match="unknown arch"):
         jregistry.get_arch("no-such-arch")
-    # the GNN id refuses, naming its missing modules; the LM ids are ported
-    with pytest.raises(NotImplementedError, match="models/gnn.py"):
-        configs.get_arch("graphsage-reddit")
-    for arch in ("qwen3-1.7b", "llama4-scout-17b-a16e"):
-        assert configs.get_arch(arch).family == "lm"
+    # the GNN and LM ids are ported: each equals the reference's
+    for arch in ("graphsage-reddit", "qwen3-1.7b", "llama4-scout-17b-a16e"):
+        assert configs.get_arch(arch).family == jregistry.get_arch(
+            arch).family
         assert dataclasses.asdict(configs.get_arch(arch)) == \
             dataclasses.asdict(jregistry.get_arch(arch))
     assert configs.get_arch("sasrec").shape("serve_p99").batch == 512

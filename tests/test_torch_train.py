@@ -376,28 +376,22 @@ def test_train_step_matches_the_reference(aid, mb, clip, repeat):
 
 
 @pytest.mark.parametrize("aid,shape", [("qwen3-1.7b", "train_4k"),
-                                       ("graphsage-reddit", "full_graph")])
+                                       ("graphsage-reddit", "full_graph_sm")])
 def test_lm_and_gnn_archs_raise_not_implemented(aid, shape):
-    """The GNN family raises NotImplementedError naming its missing
-    modules; the LM family, ported since, trains instead (one tiny step)."""
+    """The LM and GNN families, once refused, are ported: each trains one
+    tiny step, and its loss and train step factories take it (and the
+    GNN's serve step factory its full-graph shape)."""
     from repro_torch.launch import train
-    fam = jget_arch(aid).family
-    if fam == "lm":
-        hist = train.train_loop(aid, shape, steps=1, device="cpu",
-                                verbose=False)
-        assert np.isfinite(hist["losses"][0])
-        arch = configs.get_arch(aid)
-        for fn in (ts.make_loss_fn, ts.make_train_step):
-            assert callable(fn(arch, arch.shape(shape)))
-        return
-    with pytest.raises(NotImplementedError, match="models/gnn.py"):
-        train.build_trainer(aid, shape, device="cpu")
-    with pytest.raises(NotImplementedError, match="models/gnn.py"):
-        train.train_loop(aid, shape, steps=1, device="cpu")
-    fake = dataclasses.replace(configs.get_arch("dcn-v2"), family=fam)
-    for fn in (ts.make_loss_fn, ts.make_train_step, ts.make_serve_step):
-        with pytest.raises(NotImplementedError, match="models/gnn.py"):
-            fn(fake, fake.shapes[0])
+    hist = train.train_loop(aid, shape, steps=1, device="cpu",
+                            verbose=False)
+    assert np.isfinite(hist["losses"][0])
+    arch = configs.get_arch(aid)
+    assert arch.family == jget_arch(aid).family
+    fns = (ts.make_loss_fn, ts.make_train_step)
+    if arch.family == "gnn":
+        fns += (ts.make_serve_step,)
+    for fn in fns:
+        assert callable(fn(arch, arch.shape(shape)))
 
 
 def test_serve_steps_are_the_serving_functions(tiny_model):
