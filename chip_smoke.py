@@ -235,7 +235,33 @@ non-zero):
      against the one-process `gnn_full_loss` on the card, float32 wire
      within TOL_SHARDED_LOSS / TOL_SHARDED_GRAD, bfloat16 wire (through
      `train_step.make_loss_fn(arch, shape, grid)`) reported
-     (deviations, step ms, bytes gathered, peak bytes a rank).
+     (deviations, step ms, bytes gathered, peak bytes a rank);
+ 28. `[dist_rec]` (the distributed scaffolding, on one world of 4 gloo
+     ranks sharing the card for the three `[dist_*]` phases): DLRM-rm2 at
+     its published cardinalities (48.08 GB of tables) row-sharded over 4
+     ranks (grid (1, 4)), then DCN-v2 on (2, 2) (tables row-sharded over
+     2, replicated over 2 data ranks: their sparse gradients exchanged),
+     3 steps of `train_loop(grid=)` at train_batch (65,536 rows), the
+     ranks taking turns at the draw: the losses within TOL_DIST_LOSS of
+     the unsharded trainer's on the card (same seed, same batches), each
+     rank's table bytes a quarter (a half) of the tables, step p50 beside
+     the unsharded step's, per-rank peak bytes; the trained DLRM-rm2
+     moved to `serve_placement` (tablewise: small tables replicated) and
+     served at serve_p99 by `make_serve_step(grid=)` against the training
+     placement's forward;
+ 29. `[dist_lm]`: qwen3-1.7b at its widths, DIST_LM_LAYERS of 28 layers in
+     float32, batch 4 x 4,096, 2 steps of `train_loop(grid=(2, 2))`
+     (leaves gathered at use a layer at a time) against the unsharded
+     trainer on the card: losses, step ms, each rank's state bytes
+     against the full state's; its final checkpoint, saved on the grid,
+     restored onto (1, 4) by `restore(grid=)` (every leaf's sum equal);
+ 30. `[dist_parts]`: on the card with CUDA tensors, `moe_apply_ep` at
+     qwen2-moe-a2.7b's widths (60 experts, top-4, 4 shared) on (1, 4)
+     against `moe_apply` (output and gradients), `cp_attention_wrap` at
+     qwen3-1.7b's attention width and 8,192 tokens against one-rank
+     attention (loss and gradients), `compressed_psum` bit-equal to the
+     same ranks' CPU answer, `pipeline_forward` over 4 stages bit-equal to
+     the stages in sequence; no `[dist_*]` phase launches a port kernel.
 Each path's launch counts are reset just before it and read just after;
 the kernels line gives the main path's as `launches`, the storage
 path's as `launches_storage`, the dynamic index's (inserts and readers)
@@ -2701,12 +2727,18 @@ SHARDED_GRIDS = (((1, 4), (), ("model",), 4),
 
 
 def sharded_rank(rank: int, world: int, store: str, inbox, outbox,
-                 backend: str) -> None:
+                 backend: str, expandable: bool = False) -> None:
     """One rank of the sharded phases, answering jobs from `inbox`
     (`rank_job`) until None: with "gloo" a process on cuda:0 (NCCL refuses
     two ranks on one card), with "nccl" one on card `rank`. Its inputs
     come from files under the run's temporary directory or from the seed;
-    only the (B, k) results cross processes, through the all-gather."""
+    only the (B, k) results cross processes, through the all-gather.
+    `expandable`: the caching allocator maps its segments in pages, so
+    memory a rank frees goes back to the card for the ranks sharing it
+    (a freed 10 GB table's segment is otherwise pinned by any small
+    tensor placed in it)."""
+    if expandable:
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     import datetime
     import traceback
     import torch
@@ -2748,6 +2780,8 @@ def rank_job(rank: int, job: dict, state: dict) -> dict:
     op = job["op"]
     if op.startswith("gnn_"):
         return gnn_rank_job(rank, job, state)
+    if op.startswith("dist_"):
+        return dist_rank_job(rank, job, state)
     lay = layout_for(cfg)
     grids = state.setdefault("grids", {})
     if op == "load":
@@ -2838,8 +2872,8 @@ def rank_breakdown(rank: int, grid, saxes, arrays, q, job) -> dict:
     group, members = grid.group(saxes)
     dist.barrier()
     t0 = time.perf_counter()
-    ss._all_gather(ids, group, members).cpu()
-    ss._all_gather(d, group, members).cpu()
+    ss.all_gather(ids, group, members).cpu()
+    ss.all_gather(d, group, members).cpu()
     return {"alone_s": alone, "gather_s": time.perf_counter() - t0}
 
 
@@ -2848,9 +2882,11 @@ class RankWorld:
     (FileStore in the run's temporary directory): gloo ranks share cuda:0,
     NCCL ranks take a card each. `run(job)` sends the job to every rank
     and returns their answers by rank; every wait and every join has a
-    time limit, and `close` stops every process."""
+    time limit, and `close` stops every process. With `wait=False` the
+    ranks start in the background and `ready()` waits for them."""
 
-    def __init__(self, n: int, root: str, name: str, backend: str = "gloo"):
+    def __init__(self, n: int, root: str, name: str, backend: str = "gloo",
+                 expandable: bool = False, wait: bool = True):
         import multiprocessing as mp
         ctx = mp.get_context("spawn")
         self.n = n
@@ -2860,16 +2896,25 @@ class RankWorld:
         t0 = time.time()
         self.procs = [ctx.Process(target=sharded_rank, daemon=True,
                                   args=(r, n, store, self.inboxes[r],
-                                        self.outbox, backend))
+                                        self.outbox, backend, expandable))
                       for r in range(n)]
         for p in self.procs:
             p.start()
+        self.t0, self.start_s = t0, None
+        if wait:
+            self.ready()
+
+    def ready(self) -> None:
+        """Wait until every rank has its CUDA context (`start_s`: seconds
+        from the spawn to the last rank's readiness)."""
+        if self.start_s is not None:
+            return
         try:
             ready = self._collect("start", 240)
         except BaseException:
             self.close()
             raise
-        self.start_s = max(v["ready"] for v in ready.values()) - t0
+        self.start_s = max(v["ready"] for v in ready.values()) - self.t0
 
     def _collect(self, what: str, timeout: float) -> dict:
         import queue
@@ -5173,6 +5218,543 @@ def phase_gnn_sharded(root: str, draws: GnnDraws, ogb: dict, card: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the distributed scaffolding (`launch.mesh`, `distributed.sharding`,
+# `act_sharding`, `compression`, `pipeline`, `models.moe.moe_apply_ep`,
+# `train_loop(grid=)`): one world of 4 gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+# (arch, grid) of `[dist_rec]`: DLRM-rm2's tables row-sharded over 4 ranks,
+# DCN-v2's over 2 and replicated over 2 data ranks
+DIST_REC = (("dlrm-rm2", (1, 4)), ("dcn-v2", (2, 2)))
+DIST_REC_STEPS = 3
+DIST_REC_BATCH = None           # the shape's 65,536 rows (None: uncut)
+# of qwen3-1.7b's 28, float32; 4 until a whole run took 1,041.6 s of its
+# 1,200 s (PERF.md §4)
+DIST_LM_LAYERS = 2
+DIST_LM_BATCH = 4               # of train_4k's 256 sequences of 4,096
+DIST_LM_STEPS = 2
+DIST_LM_GRID = (2, 2)
+TOL_DIST_LOSS = 1e-4            # sharded vs unsharded losses, relative
+DIST_MOE_TOKENS = 4096          # tokens of the expert-parallel layer
+TOL_MOE_OUT, TOL_MOE_GRAD = 1e-5, 1e-4   # tests/test_distributed.py:221
+DIST_CP_SEQ = 8192
+TOL_CP_LOSS, TOL_CP_GRAD = 1e-4, 5e-3    # tests/test_distributed.py:159
+TOL_PIPE = 2e-4                          # tests/test_distributed.py:113
+DIST_PSUM_ELEMS = 1 << 22       # elements of the compressed leaf
+
+
+def dist_launches() -> int:
+    from repro_torch.kernels import _build
+    return sum(_build.launch_counts.values())
+
+
+def dist_rec_job(job: dict) -> dict:
+    """One recommender's `train_loop(grid=)` at full width; for DLRM-rm2
+    also the trained model moved to `serve_placement` (tablewise: small
+    tables replicated) and served by `make_serve_step(grid=)` at
+    serve_p99, against the training placement's forward on the same
+    batch."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import train_step as ts
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import ProcessGrid
+    from repro_torch.models.recsys import rec_forward
+    from repro_torch.optim.adamw import param_tree
+    aid = job["aid"]
+    grid = ProcessGrid(tuple(job["grid"]))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    h = train.train_loop(aid, "train_batch", steps=DIST_REC_STEPS,
+                         scale="full", device="cuda", grid=grid,
+                         verbose=False, batch=DIST_REC_BATCH)
+    wall = time.perf_counter() - t0
+    st = h["state"]
+    tree = param_tree(st.params)
+    out = dict(losses=h["losses"], step_s=h["step_s"], wall_s=wall,
+               table_bytes=sum(t.numel() * t.element_size()
+                               for n, t in tree.items()
+                               if n.startswith("tables/")),
+               state_bytes=sum(t.numel() * t.element_size()
+                               for t in [*tree.values(), *st.opt.m.values(),
+                                         *st.opt.v.values()]),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    if job.get("serve"):
+        arch, init, _, data = train.build_trainer(
+            aid, "train_batch", scale="full", device="cuda", grid=grid)
+        shape = get_arch(aid).shape("serve_p99")
+        b = {k: v[:shape.batch] for k, v in data(DIST_REC_STEPS).items()
+             if k != "label"}
+        want = rec_forward(st.params, SH.shard_batch(b, "rec_serve", grid),
+                           arch.model)
+        meta = train._make_init(arch, None)(torch.Generator("cpu"), "meta")
+        place = ts.serve_placement(arch, shape, grid, meta)
+        params = ts.reshard(st.params, init.placement, place)
+        t1 = time.perf_counter()
+        got = ts.make_serve_step(arch, shape, grid=grid)(params, b)
+        torch.cuda.synchronize()
+        out.update(serve_ms=(time.perf_counter() - t1) * 1e3,
+                   serve_err=float((got - want).abs().max()),
+                   serve_rows=int(got.shape[0]),
+                   replicated_tables=sum(
+                       1 for n, sp in place.params.items()
+                       if n.startswith("tables/") and not SH.spec_axes(sp)),
+                   serve_table_bytes=sum(
+                       t.numel() * t.element_size()
+                       for n, t in param_tree(params).items()
+                       if n.startswith("tables/")))
+        del params, got, want
+    del st, tree, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def leaf_sums(state, place) -> dict:
+    """{leaf: float64 sum of the full leaf}: each rank adds the blocks it
+    owns, the world sums (a check of a sharded state that gathers
+    nothing)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.ckpt import _flatten
+    from repro_torch.distributed import sharding as SH
+    leaves = _flatten(state)
+    mine = torch.stack([
+        t.detach().to(torch.float64).sum() if SH.owner(
+            place.leaves[n][0], place.grid) else
+        torch.zeros((), dtype=torch.float64, device=t.device)
+        for n, t in leaves.items()]).cpu()
+    dist.all_reduce(mine)
+    return dict(zip(leaves, mine.tolist()))
+
+
+def dist_lm_job(job: dict) -> dict:
+    """qwen3-1.7b at its widths, `DIST_LM_LAYERS` layers in float32,
+    `train_loop(grid=)` on DIST_LM_GRID with its final checkpoint saved on
+    the grid: losses, step seconds, this rank's state bytes against the
+    full state's; then the checkpoint restored onto (1, 4)
+    (`restore(grid=)`, each rank reading its blocks), every leaf's sum
+    against the trained state's."""
+    import gc
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint.ckpt import _flatten, restore
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import ProcessGrid
+    grid = ProcessGrid(tuple(job["grid"]))
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(scale="full", device="cuda", batch=DIST_LM_BATCH,
+              steps=DIST_LM_STEPS, model_overrides=dict(
+                  n_layers=DIST_LM_LAYERS, dtype="float32"))
+    h = train.train_loop("qwen3-1.7b", "train_4k", grid=grid, verbose=False,
+                         ckpt_dir=job["dir"], ckpt_every=1 << 30, **kw)
+    place = train.build_trainer("qwen3-1.7b", "train_4k", grid=grid,
+                                **kw)[1].placement
+    leaves = _flatten(h["state"])
+    mine = sum(t.numel() * t.element_size() for t in leaves.values())
+    full = sum(int(np.prod(place.leaves[n][1])) * t.element_size()
+               for n, t in leaves.items())
+    out = dict(losses=h["losses"], step_s=h["step_s"], state_bytes=mine,
+               full_state_bytes=full,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    want = leaf_sums(h["state"], place)
+    del h, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, init, _, _ = train.build_trainer("qwen3-1.7b", "train_4k",
+                                        grid=ProcessGrid((1, 4)), **kw)
+    st = restore(job["dir"], init(device="meta"), device="cuda",
+                 grid=init.placement.grid, layout=init.placement.leaves)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    got = leaf_sums(st, init.placement)
+    out["restore_rel_err"] = max(abs(got[n] - w) / (abs(w) + 1e-30)
+                                 for n, w in want.items())
+    out["restore_leaves"] = len(got)
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    if grid.rank == 0:
+        shutil.rmtree(job["dir"], ignore_errors=True)
+    return out
+
+
+def _rel(a, b) -> float:
+    return float((a - b).abs().max() / (b.abs().max() + 1e-9))
+
+
+def dist_moe_part(rank: int) -> dict:
+    """qwen2-moe-a2.7b's MoE layer (60 experts, top-4, d_expert 1,408, 4
+    shared experts) on DIST_MOE_TOKENS tokens, float32: `moe_apply_ep` on
+    grid (1, 4) against `moe_apply` on the same inputs, output and every
+    gradient of (out ** 2).sum() (an expert leaf on this rank's rows)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import act_sharding as AS
+    from repro_torch.launch.mesh import ProcessGrid
+    from repro_torch.models.moe import init_moe, moe_apply, moe_apply_ep
+    cfg = get_arch("qwen2-moe-a2.7b").model
+    mc, D = cfg.moe, cfg.d_model
+    grid = ProcessGrid((1, 4))
+    n_pad = mc.padded_experts(grid.sizes["model"]) - mc.n_experts
+    g = torch.Generator("cuda").manual_seed(0)
+    p = init_moe(D, mc, generator=g, device="cuda", n_pad_experts=n_pad)
+    leaves = {"router": p["router"], "w_gate": p["w_gate"],
+              "w_up": p["w_up"], "w_down": p["w_down"],
+              **{f"shared/{k}": v for k, v in p["shared"].items()}}
+    for t in leaves.values():
+        t.requires_grad_(True)
+    x = torch.randn((DIST_MOE_TOKENS, D), generator=g, device="cuda")
+
+    def run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, aux = fn(p, x, mc, n_pad_experts=n_pad)
+        gs = torch.autograd.grad((out ** 2).sum(), list(leaves.values()))
+        torch.cuda.synchronize()
+        return out.detach(), dict(zip(leaves, gs)), time.perf_counter() - t0
+    want, g_want, ms_plain = run(moe_apply)
+    AS.set_policy(grid)
+    try:
+        run(moe_apply_ep)                         # warm-up
+        got, g_got, ms_ep = run(moe_apply_ep)
+    finally:
+        AS.set_policy(None)
+    E_loc = (mc.n_experts + n_pad) // grid.sizes["model"]
+    lo = grid.index(("model",)) * E_loc
+    gerr = 0.0
+    for k, w in g_want.items():
+        a = g_got[k]
+        if k in ("w_gate", "w_up", "w_down"):
+            a, w = a[lo:lo + E_loc], w[lo:lo + E_loc]
+        gerr = max(gerr, _rel(a, w))
+    return dict(moe_out_err=_rel(got, want), moe_grad_err=gerr,
+                moe_ep_ms=ms_ep * 1e3, moe_plain_ms=ms_plain * 1e3)
+
+
+def dist_cp_part(rank: int) -> dict:
+    """qwen3-1.7b's attention width (16 heads of 128 over 8 KV heads) at
+    DIST_CP_SEQ tokens: `cp_attention_wrap` on grid (1, 4) (q rows over
+    `model`) against single-rank `flash_attention_vjp`, the loss
+    sum(out * w) and the gradients of q, k and v."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import act_sharding as AS
+    from repro_torch.launch.mesh import ProcessGrid
+    from repro_torch.models.layers import flash_attention_vjp
+    cfg = get_arch("qwen3-1.7b").model
+    g = torch.Generator("cuda").manual_seed(1)
+    S, H, KVH, hd = DIST_CP_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = (torch.randn((1, S, n, hd), generator=g, device="cuda")
+               .requires_grad_(True) for n in (H, KVH, KVH))
+    w = torch.randn((1, S, H, hd), generator=g, device="cuda")
+
+    def flash(qq, kk, vv, off):
+        return flash_attention_vjp(qq, kk, vv, off, True, 0, False,
+                                   min(512, qq.shape[1]),
+                                   min(1024, kk.shape[1]))
+
+    def run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = (fn(q, k, v) * w).sum()
+        gs = torch.autograd.grad(loss, [q, k, v])
+        torch.cuda.synchronize()
+        return float(loss.detach()), gs, time.perf_counter() - t0
+    want, g_want, s_plain = run(lambda a, b, c: flash(a, b, c, 0))
+    AS.set_policy(ProcessGrid((1, 4)), cp_attention=True)
+    try:
+        cp = AS.cp_attention_wrap(flash, S)
+        require(cp is not None, "cp attention does not apply")
+        got, g_got, s_cp = run(cp)
+    finally:
+        AS.set_policy(None)
+    return dict(cp_loss_err=abs(got - want) / (abs(want) + 1e-9),
+                cp_grad_err=max(_rel(a, b) for a, b in zip(g_got, g_want)),
+                cp_ms=s_cp * 1e3, cp_plain_ms=s_plain * 1e3)
+
+
+def dist_psum_part(rank: int) -> dict:
+    """`compressed_psum` over the 4 ranks on the card (through the host:
+    gloo) against the same on the CPU, bit for bit, and against the float32
+    mean (<= 0.02 relative); its time beside a float32 all-reduce of the
+    same leaf."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.compression import compressed_psum
+    from repro_torch.launch.mesh import all_reduce
+    g = torch.Generator().manual_seed(100 + rank)
+    host = {"g": torch.randn(DIST_PSUM_ELEMS, generator=g),
+            "bias": torch.randn(1000, generator=g)}
+    card = {k: t.cuda() for k, t in host.items()}
+    world = dist.group.WORLD
+    on_cpu = compressed_psum(host, world)
+    compressed_psum(card, world)                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = compressed_psum(card, world)
+    torch.cuda.synchronize()
+    t_int8 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mean = all_reduce(card["g"], world) / 4
+    torch.cuda.synchronize()
+    t_f32 = time.perf_counter() - t0
+    return dict(psum_bit_equal=all(torch.equal(on_card[k].cpu(), on_cpu[k])
+                                   for k in host),
+                psum_rel=_rel(on_card["g"], mean), psum_ms=t_int8 * 1e3,
+                f32_allreduce_ms=t_f32 * 1e3,
+                psum_bytes=DIST_PSUM_ELEMS * 4)
+
+
+def dist_pipe_part(rank: int) -> dict:
+    """`pipeline_forward` over 4 stages ((4, 1) ("pp", "data")) on the
+    card: 8 layers of tanh(h @ w) at d = 2,048, 8 microbatches of 512
+    rows, against the stages run in sequence on the card (bit for bit)."""
+    import torch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.pipeline import make_pp_grid, \
+        pipeline_forward
+    grid = make_pp_grid(4, 1)
+    d, M, mb, L = 2048, 8, 512, 8
+    g = torch.Generator("cuda").manual_seed(7)
+    W = (torch.randn((4, L // 4, d, d), generator=g, device="cuda")
+         * d ** -0.5)
+    x = torch.randn((M, mb, d), generator=g, device="cuda")
+
+    def stage_fn(params, h):
+        for w in params:
+            h = torch.tanh(h @ w)
+        return h
+    fn = pipeline_forward(grid, stage_fn, M)
+    fn(SH.shard(W, ("pp",), grid)[0], x)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(SH.shard(W, ("pp",), grid)[0], x)
+    torch.cuda.synchronize()
+    t_pipe = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq = []
+    for m in range(M):
+        h = x[m]
+        for s in range(4):
+            h = stage_fn(W[s], h)
+        seq.append(h)
+    seq = torch.stack(seq)
+    torch.cuda.synchronize()
+    return dict(pipe_bit_equal=bool(torch.equal(out, seq)),
+                pipe_ms=t_pipe * 1e3,
+                seq_ms=(time.perf_counter() - t0) * 1e3)
+
+
+def dist_rank_job(rank: int, job: dict, state: dict) -> dict:
+    """The `[dist_*]` phases' jobs on one rank; every answer carries the
+    port kernels this rank launched in it."""
+    import torch
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.reset_launch_counts()
+    op = job["op"]
+    if op == "dist_rec":
+        out = dist_rec_job(job)
+    elif op == "dist_lm":
+        out = dist_lm_job(job)
+    else:
+        torch.cuda.reset_peak_memory_stats()
+        out = {}
+        for part in (dist_moe_part, dist_cp_part, dist_psum_part,
+                     dist_pipe_part):
+            out.update(part(rank))
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["launches"] = dist_launches()
+    return out
+
+
+def unsharded_losses(aid: str, shape: str, **kw) -> dict:
+    """`train_loop` of one process on the card (the yardstick of a
+    sharded run): losses and step seconds; the state freed after."""
+    from repro_torch.launch import train
+    fresh_peak()
+    h = train.train_loop(aid, shape, scale="full", device="cuda",
+                         verbose=False, **kw)
+    out = dict(losses=h["losses"], step_s=h["step_s"])
+    del h
+    fresh_peak()
+    return out
+
+
+def loss_err(got, want) -> float:
+    return max(abs(a - b) / (abs(b) + 1e-9) for a, b in zip(got, want))
+
+
+def p50_ms(seconds) -> str:
+    return f"{float(np.percentile(np.asarray(seconds) * 1e3, 50)):.1f}"
+
+
+def phase_dist_rec(world: "RankWorld", card: str) -> int:
+    """[dist_rec]: DLRM-rm2 at its published cardinalities (48.08 GB of
+    tables) on grid (1, 4), DCN-v2 on (2, 2): DIST_REC_STEPS steps of
+    `train_loop(grid=)` at train_batch, the losses against the unsharded
+    trainer's from the same state and batches, each rank's table bytes
+    a quarter (a half) of the tables; DLRM-rm2 then served tablewise."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.recsys import padded_vocab
+    launches = 0
+    for aid, grid in DIST_REC:
+        cfg = get_arch(aid).model
+        tables = sum(padded_vocab(v) for v in cfg.vocab_sizes) \
+            * cfg.embed_dim * 4
+        ref = unsharded_losses(aid, "train_batch", steps=DIST_REC_STEPS,
+                               batch=DIST_REC_BATCH)
+        import torch
+        parent = torch.cuda.memory_reserved()
+        ans = world.run({"op": "dist_rec", "aid": aid, "grid": grid,
+                         "serve": aid == "dlrm-rm2"}, timeout=900)
+        per = int(np.prod(grid)) // grid[0]
+        err = max(loss_err(a["losses"], ref["losses"]) for a in ans.values())
+        extra = {}
+        if aid == "dlrm-rm2":
+            extra = dict(serve_err=compact([f"{ans[r]['serve_err']:.2e}"
+                                            for r in sorted(ans)]),
+                         serve_ms=compact([f"{ans[r]['serve_ms']:.1f}"
+                                           for r in sorted(ans)]),
+                         replicated_tables=ans[0]["replicated_tables"],
+                         serve_table_bytes=ans[0]["serve_table_bytes"])
+        log("dist_rec", arch=aid, grid=compact(list(grid)),
+            batch=DIST_REC_BATCH or 65536, table_bytes=tables,
+            rank_table_bytes=compact([ans[r]["table_bytes"]
+                                      for r in sorted(ans)]),
+            rank_state_bytes=compact([ans[r]["state_bytes"]
+                                      for r in sorted(ans)]),
+            losses=compact([f"{x:.6f}" for x in ans[0]["losses"]]),
+            unsharded_losses=compact([f"{x:.6f}" for x in ref["losses"]]),
+            loss_rel_err=f"{err:.2e}",
+            step_p50_ms=p50_ms(ans[0]["step_s"][1:]),
+            unsharded_step_p50_ms=p50_ms(ref["step_s"][1:]),
+            first_step_ms=f"{ans[0]['step_s'][0] * 1e3:.1f}",
+            rank_wall_s=compact([f"{ans[r]['wall_s']:.2f}"
+                                 for r in sorted(ans)]),
+            peak_bytes=compact([ans[r]["peak_bytes"] for r in sorted(ans)]),
+            parent_reserved_bytes=parent, **extra, card=json.dumps(card))
+        require(err <= TOL_DIST_LOSS, f"{aid}: sharded losses off by {err}")
+        require(all(abs(a["table_bytes"] - tables / per) <= tables * 1e-6
+                    for a in ans.values()),
+                f"{aid}: a rank's tables are not 1/{per} of the tables")
+        require(all(a["losses"] == ans[0]["losses"] for a in ans.values()),
+                f"{aid}: the ranks' losses differ")
+        if aid == "dlrm-rm2":
+            require(all(a["serve_err"] <= 1e-4 for a in ans.values()),
+                    "tablewise serving differs from the training placement")
+            require(0 < ans[0]["replicated_tables"] < cfg.n_sparse,
+                    "tablewise replicated no table or every table")
+        launches += sum(a["launches"] for a in ans.values())
+    log("dist_rec", kernel_launches=launches)
+    require(launches == 0, "the sharded recommender path launched a kernel")
+    return launches
+
+
+def phase_dist_lm(world: "RankWorld", root: str, card: str) -> int:
+    """[dist_lm]: qwen3-1.7b at its widths (d_model 2,048, 16 heads of 128,
+    d_ff 6,144, vocab 151,936), DIST_LM_LAYERS of 28 layers in float32,
+    batch DIST_LM_BATCH x 4,096: DIST_LM_STEPS steps of
+    `train_loop(grid=DIST_LM_GRID)` against the unsharded trainer on the
+    card from the same state; each rank's state bytes against the full
+    state's; the elastic checkpoint restored onto (1, 4)."""
+    kw = dict(steps=DIST_LM_STEPS, batch=DIST_LM_BATCH,
+              model_overrides=dict(n_layers=DIST_LM_LAYERS,
+                                   dtype="float32"))
+    ref = unsharded_losses("qwen3-1.7b", "train_4k", **kw)
+    ans = world.run({"op": "dist_lm", "grid": DIST_LM_GRID,
+                     "dir": os.path.join(root, "dist_lm_ckpt")}, timeout=900)
+    err = max(loss_err(a["losses"], ref["losses"]) for a in ans.values())
+    launches = sum(a["launches"] for a in ans.values())
+    log("dist_lm", arch="qwen3-1.7b", layers=DIST_LM_LAYERS, of_layers=28,
+        dtype="float32", batch=DIST_LM_BATCH, seq=4096,
+        grid=compact(list(DIST_LM_GRID)),
+        losses=compact([f"{x:.6f}" for x in ans[0]["losses"]]),
+        unsharded_losses=compact([f"{x:.6f}" for x in ref["losses"]]),
+        loss_rel_err=f"{err:.2e}",
+        step_ms=compact([f"{x * 1e3:.1f}" for x in ans[0]["step_s"]]),
+        unsharded_step_ms=compact([f"{x * 1e3:.1f}"
+                                   for x in ref["step_s"]]),
+        rank_state_bytes=compact([ans[r]["state_bytes"]
+                                  for r in sorted(ans)]),
+        full_state_bytes=ans[0]["full_state_bytes"],
+        peak_bytes=compact([ans[r]["peak_bytes"] for r in sorted(ans)]),
+        restore_onto="[1,4]", restore_leaves=ans[0]["restore_leaves"],
+        restore_rel_err=f"{ans[0]['restore_rel_err']:.2e}",
+        restore_s=compact([f"{ans[r]['restore_s']:.2f}"
+                           for r in sorted(ans)]),
+        kernel_launches=launches, card=json.dumps(card))
+    require(err <= TOL_DIST_LOSS, f"qwen3-1.7b: sharded losses off by {err}")
+    require(all(a["restore_rel_err"] <= 1e-9 for a in ans.values()),
+            "the (2, 2) checkpoint restored onto (1, 4) differs")
+    require(all(a["state_bytes"] < 0.3 * a["full_state_bytes"]
+                for a in ans.values()),
+            "a rank holds more than its quarter of the LM state")
+    require(launches == 0, "the sharded LM path launched a kernel")
+    return launches
+
+
+def phase_dist_parts(world: "RankWorld", card: str) -> int:
+    """[dist_parts]: `moe_apply_ep`, `cp_attention_wrap`, `compressed_psum`
+    and `pipeline_forward` on the card with CUDA tensors, each against its
+    one-rank or CPU counterpart (module constants for shapes and bars)."""
+    ans = world.run({"op": "dist_parts"}, timeout=600)
+    launches = sum(a["launches"] for a in ans.values())
+
+    def col(k, f="{:.2e}"):
+        return compact([f.format(ans[r][k]) for r in sorted(ans)])
+    log("dist_parts", part="moe_ep", arch="qwen2-moe-a2.7b",
+        tokens=DIST_MOE_TOKENS, grid="[1,4]", out_rel_err=col("moe_out_err"),
+        grad_rel_err=col("moe_grad_err"), ep_ms=col("moe_ep_ms", "{:.1f}"),
+        plain_ms=col("moe_plain_ms", "{:.1f}"), card=json.dumps(card))
+    log("dist_parts", part="cp_attention", seq=DIST_CP_SEQ, grid="[1,4]",
+        loss_rel_err=col("cp_loss_err"), grad_rel_err=col("cp_grad_err"),
+        cp_ms=col("cp_ms", "{:.1f}"), plain_ms=col("cp_plain_ms", "{:.1f}"),
+        card=json.dumps(card))
+    log("dist_parts", part="compressed_psum", ranks=4,
+        elems=DIST_PSUM_ELEMS, bit_equal_cpu=col("psum_bit_equal", "{}"),
+        rel_to_mean=col("psum_rel"), int8_ms=col("psum_ms", "{:.1f}"),
+        f32_allreduce_ms=col("f32_allreduce_ms", "{:.1f}"),
+        card=json.dumps(card))
+    log("dist_parts", part="pipeline", stages=4, grid="[4,1]",
+        bit_equal_sequential=col("pipe_bit_equal", "{}"),
+        pipe_ms=col("pipe_ms", "{:.1f}"), seq_ms=col("seq_ms", "{:.1f}"),
+        peak_bytes=col("peak_bytes", "{}"), kernel_launches=launches,
+        card=json.dumps(card))
+    for r, a in ans.items():
+        require(a["moe_out_err"] <= TOL_MOE_OUT
+                and a["moe_grad_err"] <= TOL_MOE_GRAD,
+                f"rank {r}: moe_apply_ep off by {a['moe_out_err']}, "
+                f"{a['moe_grad_err']}")
+        require(a["cp_loss_err"] <= TOL_CP_LOSS
+                and a["cp_grad_err"] <= TOL_CP_GRAD,
+                f"rank {r}: cp attention off by {a['cp_loss_err']}, "
+                f"{a['cp_grad_err']}")
+        require(a["psum_bit_equal"] and a["psum_rel"] < 0.02,
+                f"rank {r}: compressed_psum differs from the CPU's")
+        require(a["pipe_bit_equal"], f"rank {r}: the pipeline differs")
+    require(launches == 0, "the distributed parts launched a kernel")
+    return launches
+
+
+def phase_dist(world: "RankWorld", root: str, card: str) -> None:
+    """The three `[dist_*]` phases on one world of 4 gloo ranks sharing
+    the card (NCCL refuses two ranks on one card), started in the
+    background before the LM phases."""
+    timed("dist_world", world.ready)
+    log("dist", world_start_s=f"{world.start_s:.2f}")
+    timed("dist_rec", phase_dist_rec, world, card)
+    timed("dist_lm", phase_dist_lm, world, root, card)
+    timed("dist_parts", phase_dist_parts, world, card)
+
+
 def main() -> int:
     faulthandler.enable()          # a crash in native code prints its stack
     # PyTorch tears CUPTI down after each profiler window and sets it up
@@ -5255,9 +5837,12 @@ def run_phases(root: str) -> int:
     tower_launches = timed("recsys_towers", phase_recsys_towers)
     timed("train", phase_train, root)
     card = card_line()
-    # the full-width graphs are drawn on the host while the LM phases run
-    draws = GnnDraws(root)
+    # the `[dist_*]` ranks start (torch, a CUDA context each) and the
+    # full-width graphs are drawn on the host while the LM phases run
+    dist_world = RankWorld(4, root, "dist", expandable=True, wait=False)
+    draws = None
     try:
+        draws = GnnDraws(root)
         timed("lm_parity", phase_lm_parity, card)
         timed("lm_serve", phase_lm_serve, card)
         timed("lm_train", phase_lm_train, root, card)
@@ -5273,8 +5858,13 @@ def run_phases(root: str) -> int:
         gnn_sharded_launches = timed("gnn_sharded", phase_gnn_sharded,
                                      root, draws, ogb, card)
         del ogb
-    finally:
         draws.close()
+        draws = None
+        phase_dist(dist_world, root, card)
+    finally:
+        if draws is not None:
+            draws.close()
+        dist_world.close()
     log("phase_s", total=round(sum(PHASE_S.values()), 2),
         by_phase=compact(PHASE_S))
     log("profiler", windows=len(PROFILED_LAUNCHES),

@@ -10,6 +10,15 @@ stored as its raw u16 bits with "bfloat16" in the manifest. Each package
 restores the other's checkpoints: the port's tree paths are the
 reference's (a NamedTuple field is ".name", a dict key its key, a list
 item its index, and a module's parameters their `param_tree` paths).
+
+Elastic checkpoints: on a process grid (`grid=` with the state's
+`layout`, {leaf name: (spec, full shape)}, `train_step.Placement.leaves`)
+a save writes the same files as an unsharded save of the full state, byte
+for byte: rank 0 lays every leaf's .npy out at its full size, and each
+rank writes its own block into it at its offset (a replicated block by
+one rank), so no rank gathers a table. `restore(..., grid=, layout=)`
+reads only this rank's block of each leaf, onto any grid; the plain
+`restore` reads a sharded save onto one process.
 """
 from __future__ import annotations
 
@@ -74,7 +83,7 @@ def _save_host(path: str, leaves: Iterable[Tuple[str, Tuple[np.ndarray,
     manifest = {"step": step, "time": time.time(),
                 "leaves": {}, **(extra_meta or {})}
     for name, (arr, logical) in leaves:
-        fn = name.replace("/", "__") + ".npy"
+        fn = _file(name)
         np.save(os.path.join(tmp, fn), arr)
         manifest["leaves"][name] = {"file": fn, "shape": list(arr.shape),
                                     "dtype": logical}
@@ -87,11 +96,72 @@ def _save_host(path: str, leaves: Iterable[Tuple[str, Tuple[np.ndarray,
 
 
 def save(path: str, tree: Any, *, step: int,
-         extra_meta: Optional[dict] = None) -> str:
+         extra_meta: Optional[dict] = None, grid=None,
+         layout: Optional[Dict[str, Tuple[tuple, tuple]]] = None) -> str:
     """Synchronous save, one leaf at a time through the host. Returns the
-    final step dir."""
+    final step dir. With `grid` (and the state's `layout`): every rank of
+    the grid calls it together with its blocks (module docstring)."""
+    if grid is not None:
+        return _save_sharded(path, tree, step=step, extra_meta=extra_meta,
+                             grid=grid, layout=layout)
     leaves = ((n, _host(l)) for n, l in _flatten(tree).items())
     return _save_host(path, leaves, step=step, extra_meta=extra_meta)
+
+
+def _npy_dtype(leaf: torch.Tensor) -> Tuple[np.dtype, str]:
+    if leaf.dtype == torch.bfloat16:
+        return np.dtype(np.uint16), "bfloat16"
+    dt = torch.empty(0, dtype=leaf.dtype).numpy().dtype
+    return dt, str(dt)
+
+
+def _save_sharded(path: str, tree: Any, *, step: int,
+                  extra_meta: Optional[dict], grid, layout) -> str:
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import block_slices, owner
+    final = os.path.join(path, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    leaves = _flatten(tree)
+    if set(leaves) != set(layout):
+        raise ValueError("the layout does not name the state's leaves")
+    fmt = np.lib.format
+    if grid.rank == 0:
+        os.makedirs(tmp, exist_ok=True)
+        for name, leaf in leaves.items():
+            dt, _ = _npy_dtype(leaf)
+            del_ = fmt.open_memmap(os.path.join(tmp, _file(name)),
+                                   mode="w+", dtype=dt,
+                                   shape=layout[name][1])
+            del del_           # the header and the zero-filled data
+    dist.barrier()
+    for name, leaf in leaves.items():
+        spec, shape = layout[name]
+        if not owner(spec, grid) or not int(np.prod(shape)):
+            continue
+        arr, _ = _host(leaf)
+        mm = fmt.open_memmap(os.path.join(tmp, _file(name)), mode="r+")
+        mm[block_slices(shape, spec, grid)] = arr
+        mm.flush()
+        del mm
+    dist.barrier()
+    if grid.rank == 0:
+        manifest = {"step": step, "time": time.time(),
+                    "leaves": {}, **(extra_meta or {})}
+        for name, leaf in leaves.items():
+            manifest["leaves"][name] = {
+                "file": _file(name), "shape": list(layout[name][1]),
+                "dtype": _npy_dtype(leaf)[1]}
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    dist.barrier()
+    return final
+
+
+def _file(name: str) -> str:
+    return name.replace("/", "__") + ".npy"
 
 
 class AsyncCheckpointer:
@@ -137,14 +207,18 @@ def _on(t: torch.Tensor, dev: torch.device) -> bool:
 
 
 def _load(d: str, info: dict, dev: torch.device, into: Any,
-          stage: torch.Tensor) -> torch.Tensor:
+          stage: torch.Tensor, block: Optional[Tuple[slice, ...]] = None
+          ) -> torch.Tensor:
     """One leaf's file, read into `into` when it is a tensor on `dev` with
     the stored shape and dtype, else into a new tensor on `dev`, a slab at
-    a time through `stage` (a host byte buffer)."""
+    a time through `stage` (a host byte buffer). `block`: the slices of
+    the part to read (its rows a slab at a time from a memory map)."""
     shape = tuple(info["shape"])
     bf16 = info["dtype"] == "bfloat16"
     dtype = (torch.bfloat16 if bf16 else
              torch.from_numpy(np.empty(0, info["dtype"])).dtype)
+    if block is not None:
+        return _load_block(d, info, dev, into, stage, block, dtype)
     fits = (isinstance(into, torch.Tensor) and _on(into, dev)
             and tuple(into.shape) == shape and into.dtype == dtype
             and into.is_contiguous())
@@ -168,6 +242,38 @@ def _load(d: str, info: dict, dev: torch.device, into: Any,
             if f.readinto(memoryview(buf.numpy())) != len(buf):
                 raise ValueError(f"{info['file']}: truncated")
             part.copy_(buf.view(part.dtype))
+    return dst
+
+
+def _load_block(d: str, info: dict, dev: torch.device, into: Any,
+                stage: torch.Tensor, block: Tuple[slice, ...],
+                dtype: torch.dtype) -> torch.Tensor:
+    mm = np.load(os.path.join(d, info["file"]), mmap_mode="r")
+    part = mm[block] if mm.ndim else mm
+    shape = tuple(part.shape)
+    fits = (isinstance(into, torch.Tensor) and _on(into, dev)
+            and tuple(into.shape) == shape and into.dtype == dtype
+            and into.is_contiguous())
+    dst = into if fits else torch.empty(shape, dtype=dtype, device=dev)
+    if dst.numel() == 0:
+        return dst
+    flat = dst.detach().view(-1)
+    if dtype == torch.bfloat16:
+        flat = flat.view(torch.int16)
+    if part.ndim == 0:
+        flat.copy_(torch.from_numpy(np.array(part).reshape(1)).view(
+            flat.dtype))
+        return dst
+    row = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+    per = max(1, len(stage) // (row * flat.element_size()))
+    for i in range(0, shape[0], per):
+        rows = part[i:i + per]
+        n = rows.size * flat.element_size()
+        np.copyto(stage[:n].numpy().view(rows.dtype).reshape(rows.shape),
+                  rows)
+        flat[i * row:i * row + rows.size].copy_(
+            stage[:n].view(flat.dtype))
+    del mm
     return dst
 
 
@@ -195,13 +301,19 @@ def _rebuild(like, loaded: Dict[str, torch.Tensor], prefix: str = ""):
 
 
 def restore(path: str, like: Any, *, step: Optional[int] = None,
-            device: DeviceLike = None) -> Any:
+            device: DeviceLike = None, grid=None,
+            layout: Optional[Dict[str, Tuple[tuple, tuple]]] = None) -> Any:
     """Restore into the structure of `like` on `device` (default: the
     card). A tensor of `like` on `device` with the stored shape and dtype
     (a module's parameters among them) is overwritten in place, through
     one 256 MiB host slab, so a restore into a live state holds no second
     copy of it on the card or the host; any other leaf (one on the meta
-    device: a skeleton) is made anew on `device`."""
+    device: a skeleton) is made anew on `device`.
+
+    With `grid` and `layout` (`train_step.Placement.leaves`), `like` holds
+    this rank's blocks and each leaf's block is read from its file, and
+    nothing else of it: a checkpoint saved on any grid, or by one
+    process, restores onto this one."""
     dev = resolve_device(device)
     if step is None:
         step = latest_step(path)
@@ -212,6 +324,18 @@ def restore(path: str, like: Any, *, step: Optional[int] = None,
         manifest = json.load(f)
     stage = torch.empty(_SLAB_BYTES, dtype=torch.uint8,
                         pin_memory=dev.type == "cuda")
-    loaded = {n: _load(d, manifest["leaves"][n], dev, leaf, stage)
-              for n, leaf in _flatten(like).items()}
+    if grid is None:
+        loaded = {n: _load(d, manifest["leaves"][n], dev, leaf, stage)
+                  for n, leaf in _flatten(like).items()}
+    else:
+        from repro_torch.distributed.sharding import block_slices
+        loaded = {}
+        for n, leaf in _flatten(like).items():
+            info = manifest["leaves"][n]
+            spec, shape = layout[n]
+            if tuple(info["shape"]) != tuple(shape):
+                raise ValueError(f"{n}: stored {info['shape']}, the state's "
+                                 f"is {shape}")
+            loaded[n] = _load(d, info, dev, leaf, stage,
+                              block_slices(shape, spec, grid))
     return _rebuild(like, loaded)

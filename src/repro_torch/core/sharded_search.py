@@ -7,8 +7,8 @@ point), like the paper's per-server indices. A query fans out to every
 shard, each rank runs the local AiSAQ beam search (`beam_search_device`),
 and the local top-k lists merge by an all-gather and a global top-k.
 
-Process grid (the reference's mesh): the world's ranks as a 2-D grid
-named ("data", "model"), row-major.
+Process grid (the reference's mesh): `launch.mesh.ProcessGrid`, the
+world's ranks as a ("data", "model") grid, row-major (re-exported here).
   query batch  -> ("data",)   (paper: request load-balancer)
   index shards -> ("model",)  (paper: servers on the ethernet/Lustre tier)
 `query_axes=()` replicates the queries over the grid ("mode B", the index
@@ -18,7 +18,8 @@ The collective backend is the caller's: `init_process_group("gloo")` for
 CPU tensors and for several ranks sharing one card, `"nccl"` where each
 rank has its own card (NCCL refuses two ranks on one GPU). Gloo moves
 host tensors, so with CUDA tensors the (B, k) results are copied to the
-host for the all-gather and back; each rank's search runs on its device.
+host for the all-gather and back (`launch.mesh.all_gather`); each rank's
+search runs on its device.
 
 The merge is the reference's: the gathered (S, B, k) lists laid out shard
 by shard, (B, S*k), and a stable ascending sort of the distances, first k
@@ -33,7 +34,6 @@ from typing import Callable, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.core.chunk_layout import ChunkLayout, pack_chunks_torch
 from repro_torch.core.device_index import _smallest, beam_search_device, \
@@ -41,6 +41,7 @@ from repro_torch.core.device_index import _smallest, beam_search_device, \
 from repro_torch.core.shard_math import (     # noqa: F401  (re-exported)
     ShardAssignment, contiguous_shards, merge_topk)
 from repro_torch.device import DeviceLike, resolve_device, to_tensor
+from repro_torch.launch.mesh import ProcessGrid, all_gather  # noqa: F401
 
 
 class ShardedIndexArrays(NamedTuple):
@@ -93,71 +94,6 @@ def stack_shards(shards: Sequence[Tuple[int, object, object]], centroids,
         offsets=torch.tensor(offs, dtype=torch.int32, device=dev))
 
 
-class ProcessGrid:
-    """The world's ranks as a (data, model) grid of `shape`, row-major
-    (rank = data_index * shape[1] + model_index): the counterpart of the
-    reference's ("data", "model") mesh. Needs an initialised default
-    process group of shape[0] * shape[1] ranks."""
-
-    axis_names = ("data", "model")
-
-    def __init__(self, shape: Tuple[int, int]):
-        if not dist.is_initialized():
-            raise RuntimeError("ProcessGrid needs torch.distributed's "
-                               "default process group (init_process_group)")
-        if len(shape) != 2:
-            raise ValueError(f"a grid is (data, model), got {shape}")
-        self.shape = tuple(shape)
-        self.world = dist.get_world_size()
-        if int(np.prod(shape)) != self.world:
-            raise ValueError(f"a {shape} grid needs {int(np.prod(shape))} "
-                             f"ranks, the world has {self.world}")
-        self.rank = dist.get_rank()
-        self._groups = {}
-
-    def coords(self, rank: int = None) -> Tuple[int, ...]:
-        r = self.rank if rank is None else rank
-        return tuple(int(c) for c in np.unravel_index(r, self.shape))
-
-    def _axis(self, name: str) -> int:
-        return self.axis_names.index(name)
-
-    def size(self, axes: Sequence[str]) -> int:
-        return int(np.prod([self.shape[self._axis(a)] for a in axes]))
-
-    def index(self, axes: Sequence[str], rank: int = None) -> int:
-        """The rank's block along `axes` taken together, the first one
-        major: the block of a leading dim that the reference's
-        PartitionSpec(axes) gives this device."""
-        c = self.coords(rank)
-        i = 0
-        for a in axes:
-            i = i * self.shape[self._axis(a)] + c[self._axis(a)]
-        return i
-
-    def group(self, axes: Sequence[str]):
-        """(process group, its member ranks in order of `index(axes)`):
-        the ranks that share this rank's coordinates on the other axes.
-        The first call for some `axes` is collective (every rank creates
-        every such group, in the same order)."""
-        axes = tuple(axes)
-        if axes not in self._groups:
-            others = [self._axis(a) for a in self.axis_names
-                      if a not in axes]
-            buckets = {}
-            for r in range(self.world):
-                c = self.coords(r)
-                buckets.setdefault(tuple(c[i] for i in others), []).append(r)
-            for key in sorted(buckets):
-                members = buckets[key]
-                g = (dist.group.WORLD if len(members) == self.world
-                     else dist.new_group(members))
-                if self.rank in members:
-                    self._groups[axes] = (g, sorted(
-                        members, key=lambda r: self.index(axes, r)))
-        return self._groups[axes]
-
-
 def merge_shards(all_ids: torch.Tensor, all_d: torch.Tensor, k: int):
     """The device tier's merge: (S, B, k') ids and distances, shard by
     shard, -> the (B, k) ids and distances of the k smallest distances of
@@ -169,23 +105,6 @@ def merge_shards(all_ids: torch.Tensor, all_d: torch.Tensor, k: int):
     d = all_d.permute(1, 0, 2).reshape(B, S * kk)
     vals, pos = _smallest(d, k)
     return ids.gather(1, pos), vals
-
-
-def _all_gather(t: torch.Tensor, group, members: Sequence[int]
-                ) -> torch.Tensor:
-    """(len(members), *t.shape): every member's t, in `members` order.
-    Gloo gathers host tensors, so a CUDA tensor goes through the host (the
-    (B, k) results are small); NCCL gathers on the device."""
-    n = len(members)
-    if n == 1:
-        return t[None]
-    via_host = t.is_cuda and dist.get_backend(group) == "gloo"
-    src = (t.cpu() if via_host else t).contiguous()
-    out = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(out, src, group=group)
-    by_rank = dict(zip(dist.get_process_group_ranks(group), out))
-    stacked = torch.stack([by_rank[r] for r in members])
-    return stacked.to(t.device) if via_host else stacked
 
 
 def sharded_search_fn(grid: ProcessGrid, *, k: int, L: int, w: int,
@@ -246,8 +165,8 @@ def sharded_search_fn(grid: ProcessGrid, *, k: int, L: int, w: int,
         gids = torch.where(valid, ids + arrays.offsets[0], -1).to(torch.int32)
         d = torch.where(valid, d, torch.inf)
         # merge across shards: (S, B_l, k) -> top-k per query
-        return merge_shards(_all_gather(gids, group, members),
-                            _all_gather(d, group, members), k)
+        return merge_shards(all_gather(gids, group, members),
+                            all_gather(d, group, members), k)
 
     return search
 

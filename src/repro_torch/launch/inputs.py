@@ -1,9 +1,11 @@
 """Model FLOPs of a cell, the "useful work" yardstick (port of
 `repro.launch.inputs.model_flops`).
 
-The reference's `build_cell` and `input_specs` (its dry-run cells) wait
-for the port's sharding rules; `flops.cell_terms` gives each cell's
-bytes and times on the card.
+The reference's `build_cell` and `input_specs` (its dry-run cells) are
+the next slice: they can now take their specs from the port's rules
+(`distributed.sharding`: `spec_tree`, the param rules, `opt_state_specs`,
+`batch_specs`, `cache_spec`); `flops.cell_terms` gives each cell's bytes
+and times on the card.
 """
 from __future__ import annotations
 

@@ -26,6 +26,15 @@ loss).
 Parameters are drawn from a seeded `torch.Generator`, or come from a
 reference state (`train_state_from_jax`, or a checkpoint of either package
 in `--ckpt-dir`, which a run resumes from).
+
+`build_trainer(..., grid=)` and `train_loop(..., grid=)` (the reference's
+`mesh=`) train on a process grid: the policy is installed
+(`act_sharding.set_policy`), the state is sharded as
+`distributed.sharding`'s rules say (each rank holds exactly the blocks
+that `sharding.shard` takes from the unsharded state of the same seed),
+the step is `train_step`'s sharded step and the checkpoints are elastic.
+Every rank of the grid calls them together; initialising the process
+group is the caller's job, and the CLI, like the reference's, has no grid.
 """
 from __future__ import annotations
 
@@ -37,12 +46,14 @@ from typing import Optional
 import torch
 
 from repro_torch.checkpoint.ckpt import AsyncCheckpointer, latest_step, \
-    restore
+    restore, save
 from repro_torch.configs import get_arch
 from repro_torch.device import DeviceLike, resolve_device, to_tensor
 from repro_torch.distributed.fault_tolerance import Heartbeat, WorkerFailure
-from repro_torch.distributed.train_step import (TrainState, default_optimizer,
-                                                make_train_step)
+from repro_torch.distributed.train_step import (TrainState, attach,
+                                                default_optimizer,
+                                                make_train_step, placement,
+                                                shard_state)
 
 
 def tiny_lm(cfg):
@@ -52,33 +63,51 @@ def tiny_lm(cfg):
                       moe=None, dtype="float32")
 
 
-def _make_init(arch, shape=None):
-    """(generator, device) -> parameters (the reference's
+def _make_init(arch, shape=None, ep: int = 1):
+    """(generator, device, keep=None) -> parameters (the reference's
     `launch.inputs._make_init`); a GNN's input width is the shape's
-    d_feat."""
+    d_feat, an LM's experts are padded to a multiple of `ep`. `keep`
+    (recommenders): keep(path, table) -> what to hold of each table as it
+    is drawn."""
     if arch.family == "lm":
         from repro_torch.models.transformer import init_lm
-        return lambda generator, device: init_lm(
-            arch.model, generator=generator, device=device)
+        return lambda generator, device, keep=None: init_lm(
+            arch.model, generator=generator, device=device, ep=ep)
     if arch.family == "gnn":
         from repro_torch.models.gnn import init_gnn
-        return lambda generator, device: init_gnn(
+        return lambda generator, device, keep=None: init_gnn(
             arch.model, shape.d_feat, generator=generator, device=device)
     from repro_torch.models.recsys import init_recsys
-    return lambda generator, device: init_recsys(
-        arch.model, generator=generator, device=device)
+    return lambda generator, device, keep=None: init_recsys(
+        arch.model, generator=generator, device=device, keep=keep)
 
 
 def build_trainer(arch_id: str, shape_name: str, *, scale: str = "tiny",
                   microbatches: int = 1, lr: float = 3e-3, steps: int = 100,
-                  device: DeviceLike = None, batch: Optional[int] = None):
+                  device: DeviceLike = None, batch: Optional[int] = None,
+                  grid=None, model_overrides: Optional[dict] = None):
     """Returns (arch, state_init, step_fn, data_gen). `state_init(generator
     =None, device=None)` draws the parameters from `generator` (default: a
     generator on the device seeded with 0) and a fresh optimizer state, on
     `device` (default: the trainer's; "meta" gives a skeleton that
     allocates nothing, for `restore` to fill). `batch`, when given, cuts
-    the shape's batch (an LM's global_batch, a recommender's batch)."""
+    the shape's batch (an LM's global_batch, a recommender's batch);
+    `model_overrides` replaces fields of the model config after the scale
+    (`{"n_layers": 4, "dtype": "float32"}` cuts an LM's depth).
+
+    With `grid`, state_init gives this rank's blocks (`state_init.
+    placement` says where each leaf lives): the ranks take turns at the
+    draw (a rank draws every leaf as the unsharded init does and keeps
+    its blocks, a recommender's tables one at a time), so ranks that share
+    a card never hold two whole tables at once; `state_init(from_state=
+    full)` shards a full state instead (e.g. `train_state_from_jax`'s).
+    The step is the sharded one; the data is the global batch (the step
+    takes this rank's dp slice), a GNN's graph this rank's partition
+    (`partition_edges`, `local_csr`), its states gathered in float32 so
+    the losses stay within 1e-4 of the unsharded trainer's."""
+    from repro_torch.distributed.act_sharding import set_policy
     dev = resolve_device(device)
+    set_policy(grid)
     arch = get_arch(arch_id)
     if arch.family not in ("lm", "recsys", "gnn"):
         raise ValueError(f"{arch_id} ({arch.family}) has no training path")
@@ -93,7 +122,8 @@ def build_trainer(arch_id: str, shape_name: str, *, scale: str = "tiny",
     if scale == "tiny":
         if arch.family == "lm":
             arch = dataclasses.replace(arch, model=tiny_lm(arch.model))
-            shape = dataclasses.replace(shape, seq_len=128, global_batch=4)
+            shape = dataclasses.replace(shape, seq_len=128, global_batch=max(
+                4, grid.sizes.get("data", 1) if grid else 4))
         elif arch.family == "gnn":
             arch = dataclasses.replace(
                 arch, model=arch.model.scaled(d_hidden=32, n_classes=8))
@@ -105,15 +135,26 @@ def build_trainer(arch_id: str, shape_name: str, *, scale: str = "tiny",
                 vocab_sizes=tuple(min(v, 2000)
                                   for v in arch.model.vocab_sizes)))
             shape = dataclasses.replace(shape, batch=min(shape.batch, 64))
+    if model_overrides:
+        arch = dataclasses.replace(arch, model=arch.model.scaled(
+            **model_overrides))
     if batch is not None:
         shape = dataclasses.replace(
             shape, **{"global_batch" if arch.family == "lm" else "batch":
                       batch})
-    init_fn = _make_init(arch, shape)
+    ep = grid.sizes.get("model", 1) if grid is not None else 1
+    init_fn = _make_init(arch, shape, ep=ep if arch.family == "lm" else 1)
     opt = default_optimizer(total_steps=steps, base_lr=lr)
     opt_init, _ = opt
+    place = None
+    if grid is not None:
+        meta = init_fn(torch.Generator("cpu"), "meta")
+        place = placement(arch.family, grid, TrainState(meta,
+                                                        opt_init(meta)))
+        del meta
     step_fn = make_train_step(arch, shape, optimizer=opt,
-                              microbatches=microbatches)
+                              microbatches=microbatches, grid=grid,
+                              place=place, wire_dtype=torch.float32)
     from repro_torch.data.pipeline import ClickStream, SasrecStream, \
         TokenStream, make_graph
     if arch.family == "gnn":
@@ -121,7 +162,15 @@ def build_trainer(arch_id: str, shape_name: str, *, scale: str = "tiny",
         g = make_graph(shape.n_nodes, max(2, shape.n_edges // shape.n_nodes),
                        shape.d_feat, arch.model.n_classes)
         graph = {k: to_tensor(v, dev) for k, v in g.items()}
-        graph["csr"] = prepare_csr(graph["edges"], shape.n_nodes)
+        if grid is None:
+            graph["csr"] = prepare_csr(graph["edges"], shape.n_nodes)
+        else:
+            from repro_torch.models.gnn_sharded import local_csr, \
+                partition_edges
+            part, _ = partition_edges(g["edges"], shape.n_nodes, grid.world)
+            graph["edges"] = to_tensor(part[grid.rank], dev)
+            graph["csr"] = local_csr(graph["edges"], shape.n_nodes,
+                                     grid.world, grid.rank)
         data_gen = lambda step: graph              # noqa: E731
     elif arch.family == "lm":
         data_gen = TokenStream(arch.model.vocab_size, shape.seq_len,
@@ -132,14 +181,50 @@ def build_trainer(arch_id: str, shape_name: str, *, scale: str = "tiny",
         data_gen = ClickStream(arch.model, shape.batch).batch_at
 
     def state_init(generator: Optional[torch.Generator] = None,
-                   device: DeviceLike = None) -> TrainState:
+                   device: DeviceLike = None,
+                   from_state: Optional[TrainState] = None) -> TrainState:
+        if from_state is not None:
+            return from_state if grid is None else \
+                shard_state(from_state, place)
         d = dev if device is None else torch.device(device)
         g = generator or torch.Generator(
             "cpu" if d.type == "meta" else d).manual_seed(0)
-        params = init_fn(g, d)
-        return TrainState(params, opt_init(params))
+        if grid is None:
+            params = init_fn(g, d)
+            return TrainState(params, opt_init(params))
+        return _sharded_init(init_fn, opt_init, g, d, place)
 
+    state_init.placement = place
     return arch, state_init, step_fn, data_gen
+
+
+def _sharded_init(init_fn, opt_init, g, d, place) -> TrainState:
+    """This rank's blocks of the unsharded init drawn from `g`: the ranks
+    take turns (a barrier between turns), each drawing every leaf in the
+    unsharded order and keeping its blocks of the recommender tables as
+    they come and of the other leaves after."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as SH
+    grid = place.grid
+
+    def keep(path, t):
+        b = SH.shard(t, place.params[path], grid)
+        return t if b.shape == t.shape else b.clone()
+
+    state = None
+    for turn in range(grid.world):
+        if turn == grid.rank:
+            params = SH.shard_module(init_fn(g, d, keep=keep), place.params,
+                                     grid, place.shapes)
+            state = TrainState(attach(params, place), opt_init(params))
+            if d.type == "cuda":
+                # the whole tables this rank drew go back to the card for
+                # the next rank's turn, not to this rank's cache
+                torch.cuda.synchronize(d)
+                torch.cuda.empty_cache()
+        if d.type != "meta":
+            dist.barrier()
+    return state
 
 
 def train_loop(arch_id: str, shape_name: str, *, steps: int,
@@ -148,33 +233,53 @@ def train_loop(arch_id: str, shape_name: str, *, steps: int,
                fail_at_step: Optional[int] = None, verbose: bool = True,
                lr: float = 3e-3, device: DeviceLike = None,
                init_state: Optional[TrainState] = None,
-               batch: Optional[int] = None):
+               batch: Optional[int] = None, grid=None,
+               model_overrides: Optional[dict] = None):
     """Run training with checkpoint/restart support. Returns the history
-    dict (losses, final_step, wall_s) and the final `state`.
+    dict (losses, final_step, wall_s, step_s: each step's seconds to its
+    loss on the host) and the final `state`.
 
     The run starts from the newest checkpoint in `ckpt_dir` when there is
     one (and `resume`), else from `init_state`, else from `state_init()`.
     `fail_at_step` injects a WorkerFailure before that step runs (the
-    fault-tolerance tests); a checkpoint in flight is finished first."""
+    fault-tolerance tests); a checkpoint in flight is finished first.
+
+    `grid`: every rank of the grid runs the loop together (`build_trainer`);
+    `init_state` is a full state, which each rank shards; the state
+    returned is this rank's blocks; a checkpoint is saved by every rank
+    (synchronously: its barriers are collectives) and a resume reads each
+    rank's blocks, from a checkpoint of any grid."""
     dev = resolve_device(device)
     arch, state_init, step_fn, data_gen = build_trainer(
         arch_id, shape_name, scale=scale, steps=steps, lr=lr, device=dev,
-        batch=batch)
+        batch=batch, grid=grid, model_overrides=model_overrides)
+    place = state_init.placement
+    on_grid = dict(grid=grid, layout=place.leaves) if grid is not None \
+        else {}
     start = latest_step(ckpt_dir) if ckpt_dir and resume else None
     if start is not None:
         # the checkpoint fills `init_state` in place, or a skeleton on the
         # meta device: no draw, and no second copy of the state
-        state = restore(ckpt_dir, init_state if init_state is not None
-                        else state_init(device="meta"), step=start,
-                        device=dev)
+        like = (state_init(from_state=init_state) if init_state is not None
+                else state_init(device="meta"))
+        state = restore(ckpt_dir, like, step=start, device=dev, **on_grid)
         if verbose:
             print(f"[train] resumed from step {start}")
     else:
         start = 0
-        state = init_state if init_state is not None else state_init()
+        state = state_init(from_state=init_state) if init_state is not None \
+            else state_init()
     ck = AsyncCheckpointer()
-    hb = Heartbeat(ckpt_dir, 0) if ckpt_dir else None
-    losses = []
+    hb = Heartbeat(ckpt_dir, grid.rank if grid is not None else 0) \
+        if ckpt_dir else None
+
+    def checkpoint(step: int):
+        if grid is None:
+            ck.save(ckpt_dir, state, step=step)
+        else:
+            save(ckpt_dir, state, step=step, **on_grid)
+
+    losses, step_s = [], []
     t0 = time.time()
     try:
         for step in range(start, steps):
@@ -185,22 +290,24 @@ def train_loop(arch_id: str, shape_name: str, *, steps: int,
                 err = WorkerFailure(f"injected failure at step {step}")
                 err.last_step = step
                 raise err
+            t_step = time.perf_counter()
             state, metrics = step_fn(state, batch)
             losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - t_step)
             if hb:
                 hb.beat(step)
             if ckpt_dir and (step + 1) % ckpt_every == 0:
-                ck.save(ckpt_dir, state, step=step + 1)
+                checkpoint(step + 1)
             if verbose and step % 10 == 0:
                 print(f"[train] step {step} loss {losses[-1]:.4f} "
                       f"({(time.time() - t0):.1f}s)", flush=True)
     finally:
         ck.wait()
     if ckpt_dir:
-        ck.save(ckpt_dir, state, step=steps)
+        checkpoint(steps)
         ck.wait()
     return {"losses": losses, "final_step": steps,
-            "wall_s": time.time() - t0, "state": state}
+            "wall_s": time.time() - t0, "step_s": step_s, "state": state}
 
 
 def main(argv=None):

@@ -18,9 +18,10 @@ of `repro.models.gnn_sharded`, where the reference uses `shard_map`).
   through an identity whose backward all-reduces its gradient, so each
   rank's `torch.autograd.grad` is the gradient of the unsharded loss.
 
-Gloo moves host tensors, so with CUDA tensors each collective goes through
-the host; NCCL would gather on the card. A bfloat16 wire moves its bytes
-as uint8 (exact: gloo refuses bfloat16 and int16 tensors).
+The collectives are `launch.mesh`'s: gloo moves host tensors, so with
+CUDA tensors each goes through the host; NCCL would gather on the card. A
+bfloat16 wire moves its bytes as uint8 (exact: gloo refuses bfloat16 and
+int16 tensors).
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ from repro_torch.configs import GNNConfig
 from repro_torch.device import DeviceLike, full_fp32, resolve_device, \
     to_tensor
 from repro_torch.kernels.segment import GraphCSR, prepare_csr, segment_sum
+from repro_torch.launch.mesh import all_gather, all_reduce, reduce_backward
 from repro_torch.optim.adamw import param_tree
 
 
@@ -58,33 +60,10 @@ def partition_edges(edges: np.ndarray, n_nodes: int, ways: int
     return out, n_local
 
 
-def _collective(op, t: torch.Tensor, group):
-    """Run `op(host_or_device_tensor, group)` on t; gloo gets a host copy
-    of a CUDA tensor and the result comes back to t's device."""
-    via_host = t.is_cuda and dist.get_backend(group) == "gloo"
-    out = op(t.cpu() if via_host else t, group)
-    return out.to(t.device) if via_host else out
-
-
-def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    def op(x, g):
-        x = x.clone()
-        dist.all_reduce(x, group=g)
-        return x
-    return _collective(op, t.contiguous(), group)
-
-
 def _all_gather_rows(t: torch.Tensor, group, ways: int) -> torch.Tensor:
-    """(ways * n, ...): every rank's t, by rank. A bfloat16 t travels as
-    its bytes (gloo refuses bfloat16 and int16 tensors)."""
-    bits = t.view(torch.uint8) if t.dtype == torch.bfloat16 else t
-
-    def op(x, g):
-        out = [torch.empty_like(x) for _ in range(ways)]
-        dist.all_gather(out, x, group=g)
-        return torch.cat(out)
-    out = _collective(op, bits.contiguous(), group)
-    return out.view(t.dtype) if t.dtype == torch.bfloat16 else out
+    """(ways * n, ...): every rank's t, by rank."""
+    return all_gather(t, group, dist.get_process_group_ranks(group)) \
+        .reshape((ways * t.shape[0],) + tuple(t.shape[1:]))
 
 
 class _GatherStates(torch.autograd.Function):
@@ -102,29 +81,16 @@ class _GatherStates(torch.autograd.Function):
     def backward(ctx, g):
         n_pad = ctx.n_local * dist.get_world_size(ctx.group)
         g = torch.nn.functional.pad(g, (0, 0, 0, n_pad - g.shape[0]))
-        g = _all_reduce(g.to(ctx.wire).to(torch.float32), ctx.group)
+        g = all_reduce(g.to(ctx.wire).to(torch.float32), ctx.group)
         lo = ctx.rank * ctx.n_local
         mine = g[lo:lo + ctx.n_local].to(ctx.wire).to(torch.float32)
         return mine, None, None, None, None, None
 
 
-class _SumGrad(torch.autograd.Function):
-    """Identity forward; the backward all-reduces the gradient."""
-
-    @staticmethod
-    def forward(ctx, p, group):
-        ctx.group = group
-        return p.view_as(p)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_reduce(g, ctx.group), None
-
-
 def sharded_full_loss_fn(grid, cfg: GNNConfig, n_nodes: int,
                          wire_dtype: torch.dtype = torch.bfloat16):
     """Returns loss_fn(params, batch) -> (loss, {"acc"}) on every rank of
-    `grid` (`core.sharded_search.ProcessGrid`), called by all together.
+    `grid` (`launch.mesh.ProcessGrid`), called by all together.
 
     batch: feats (N, F), labels (N,), mask (N,) replicated; edges the
     (ways, E_pad, 2) of `partition_edges` or this rank's (E_pad, 2); and,
@@ -143,7 +109,7 @@ def sharded_full_loss_fn(grid, cfg: GNNConfig, n_nodes: int,
         if csr is None:
             csr = local_csr(batch["edges"], n_nodes, ways, rank,
                             device=feats.device)
-        p = {n: _SumGrad.apply(t, group)
+        p = {n: reduce_backward(t, group)
              for n, t in param_tree(params).items()}
         x_glob = feats
         h_local = None
@@ -172,7 +138,7 @@ def sharded_full_loss_fn(grid, cfg: GNNConfig, n_nodes: int,
         num = torch.sum(nll * mask)
         hit = torch.sum((logits.argmax(-1) == labels.long()).to(mask.dtype)
                         * mask)
-        tot = _all_reduce(torch.stack([num.detach(), mask.sum(), hit]),
+        tot = all_reduce(torch.stack([num.detach(), mask.sum(), hit]),
                           group)
         den = torch.clamp(tot[1], min=1.0)
         # the value is the global loss, the gradient this rank's term's:

@@ -11,9 +11,11 @@ row. The reference's routing ties go to the lower expert id
 (`lax.top_k`); `torch.topk` promises no order on the card, so the
 selection is a stable sort.
 
-The reference's `moe_apply_ep` (explicit expert parallelism over a mesh)
-needs the distributed scaffolding the port does not have yet; without a
-mesh it is `moe_apply`, which is what `models.transformer` calls.
+`moe_apply_ep` is the reference's explicit expert parallelism over the
+`model` axis of the installed grid (`distributed.act_sharding`): each
+rank dispatches only its own experts and one all-reduce sums the combined
+output. `models.transformer` picks it under `REPRO_MOE=ep`, as the
+reference's `_moe_fn` does; with no grid installed it is `moe_apply`.
 """
 from __future__ import annotations
 
@@ -170,3 +172,87 @@ def moe_apply(p, x: torch.Tensor, cfg: MoEConfig, *,
     if "shared" in p:
         out = out + swiglu(p["shared"], x)
     return out, r.aux
+
+
+# ---------------------------------------------------------------------------
+# explicit expert parallelism
+# ---------------------------------------------------------------------------
+
+
+def moe_apply_ep(p, x: torch.Tensor, cfg: MoEConfig, *,
+                 n_pad_experts: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Replicated-dispatch expert parallelism over `model` (the reference's
+    `REPRO_MOE=ep`). x is this rank's dp block of tokens (T_loc, D), the
+    same on every rank of its `model` group; the routing is computed on
+    every rank alike, with the capacity of one dp group (T_loc's), and
+    each rank dispatches only the pairs of its own E / ways experts. The
+    one collective is a sum of the (T_loc, D) combined output over
+    `model`; the shared expert is added after it on every rank.
+
+    The expert leaves may be the full (E, ...) stacks (the rank takes its
+    experts' rows) or its (E / ways, ...) block. Autograd gives
+    `moe_apply`'s gradients summed over the dp blocks: the output sum's
+    backward is the identity (the output is replicated), and the tokens
+    and the router enter the routed path through an identity whose
+    backward sums their gradient over `model`, since each rank's gate
+    values see only its experts. The aux loss is each rank's own (its
+    value the mean over dp, as the reference's `pmean`; its gradient this
+    dp block's). Falls back to `moe_apply` when no grid is installed."""
+    from repro_torch.distributed import act_sharding
+    from repro_torch.launch.mesh import all_reduce, reduce_backward, \
+        reduce_forward
+    grid = act_sharding.grid()
+    if grid is None or "model" not in grid.axis_names:
+        return moe_apply(p, x, cfg, n_pad_experts=n_pad_experts)
+    group, _ = grid.group(("model",))
+    ways = grid.sizes["model"]
+    rank = grid.index(("model",))
+    T, D = x.shape
+    E = cfg.n_experts + n_pad_experts
+    if E % ways:
+        raise ValueError(f"{E} experts do not split over {ways} ranks "
+                         "(pad them: init_moe's n_pad_experts)")
+    k = cfg.top_k
+    E_loc = E // ways
+    lo = rank * E_loc
+    r = route(p, x, cfg, n_pad_experts=n_pad_experts)
+    C = r.capacity
+    # the gates again, through identities that sum the routed path's
+    # gradient over `model`: this rank's part of it
+    x_in = reduce_backward(x, group)
+    logits = x_in.to(torch.float32) @ reduce_backward(p["router"], group)
+    if n_pad_experts:
+        pad = torch.arange(E, device=x.device) >= cfg.n_experts
+        logits = torch.where(pad[None, :], -1e30, logits)
+    gate_vals = torch.softmax(logits, dim=-1).gather(1, r.top_ids)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    flat_e = r.top_ids.reshape(-1)
+    keep = r.keep & (flat_e >= lo) & (flat_e < lo + E_loc)
+    e_loc = flat_e - lo
+    src_rows = torch.arange(T * k, device=x.device) // k
+    slot = torch.where(keep, e_loc * C + r.pos_in_e, E_loc * C - 1)
+    tok_of_slot = torch.full((E_loc * C,), -1, dtype=torch.long,
+                             device=x.device).scatter_reduce_(
+        0, slot, torch.where(keep, src_rows, -1), reduce="amax")
+    tok_of_slot = torch.where(tok_of_slot < 0, T, tok_of_slot)
+    xpad = torch.cat([x_in, x_in.new_zeros((1, D))], dim=0)
+    xe = xpad[tok_of_slot].view(E_loc, C, D)
+    w = {n: p[n][lo:lo + E_loc] if p[n].shape[0] == E else p[n]
+         for n in ("w_gate", "w_up", "w_down")}
+    g = F.silu(torch.bmm(xe, w["w_gate"]))
+    u = torch.bmm(xe, w["w_up"])
+    y = torch.bmm(g * u, w["w_down"])                          # (E_loc, C, D)
+    slot_of_tok = torch.where(keep, e_loc * C + r.pos_in_e, E_loc * C)
+    ypad = torch.cat([y.reshape(E_loc * C, D), y.new_zeros((1, D))], dim=0)
+    yk = ypad[slot_of_tok].view(T, k, D)
+    out = torch.einsum("tkd,tk->td", yk.to(torch.float32), gate_vals)
+    out = reduce_forward(out, group).to(x.dtype)
+    if "shared" in p:
+        out = out + swiglu(p["shared"], x)
+    aux = r.aux
+    dp = tuple(a for a in ("pod", "data") if a in grid.axis_names)
+    if dp and grid.size(dp) > 1:
+        mean = all_reduce(aux.detach(), grid.group(dp)[0]) / grid.size(dp)
+        aux = aux + (mean - aux.detach())
+    return out, aux

@@ -35,6 +35,7 @@ from repro_torch.cudagraph import Graph, warm_up
 from repro_torch.device import DeviceLike, full_fp32, resolve_device, \
     to_tensor
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import reduce_forward
 from repro_torch.models.layers import init_dense, mlp_apply, mlp_stack, \
     truncnorm_init
 
@@ -75,6 +76,63 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
     raise ValueError(combiner)
 
 
+class TableShards:
+    """The row blocks a sharded model holds: {leaf path: lo}, the first
+    row of this rank's block of a row-sharded table (`tables/i`,
+    `wide/i`), and the `model` group whose sum reassembles a lookup."""
+
+    def __init__(self, starts: Dict[str, int], group):
+        self.starts, self.group = starts, group
+
+
+def _local_rows(table: torch.Tensor, idx: torch.Tensor, lo: int
+                ) -> torch.Tensor:
+    """`table` holds rows [lo, lo + len) of a row-sharded table: the rows
+    of `idx` in that range, zeros for the others (..., D). Under autograd
+    the table's gradient is sparse over its own rows, by local id."""
+    flat = idx.reshape(-1).long()
+    pos = ((flat >= lo) & (flat < lo + table.shape[0])).nonzero()[:, 0]
+    e = lookup(table, flat[pos] - lo)
+    out = e.new_zeros((flat.numel(),) + tuple(table.shape[1:])) \
+        .index_copy(0, pos, e)
+    return out.view(tuple(idx.shape) + tuple(table.shape[1:]))
+
+
+def table_rows(p: "Recsys", path: str, table: torch.Tensor,
+               idx: torch.Tensor) -> torch.Tensor:
+    """`lookup(table, idx)`; when the model holds only its row block of
+    the table at `path`, each rank looks up the ids in its own range and
+    the rows are summed over `model` (the psum GSPMD inserts for the
+    reference)."""
+    sh = p.shards
+    lo = None if sh is None else sh.starts.get(path)
+    if lo is None:
+        return lookup(table, idx)
+    return reduce_forward(_local_rows(table, idx, lo), sh.group)
+
+
+def bags(p: "Recsys", tables, prefix: str, sparse: torch.Tensor
+         ) -> torch.Tensor:
+    """(B, n, D): field i's bag of ids (sparse[:, i, :]) summed in table i
+    (`prefix`/i). Row-sharded tables look up their own rows, and their
+    bags are summed over `model` in one all-reduce."""
+    sh = p.shards
+    parts, cut = [], []
+    for i, t in enumerate(tables):
+        lo = None if sh is None else sh.starts.get(f"{prefix}/{i}")
+        if lo is None:
+            parts.append(embedding_bag(t, sparse[:, i, :]))
+        else:
+            parts.append(_local_rows(t, sparse[:, i, :], lo).sum(dim=-2))
+            cut.append(i)
+    if cut:
+        summed = reduce_forward(torch.stack([parts[i] for i in cut], 1),
+                                sh.group)
+        for i, r in zip(cut, summed.unbind(1)):
+            parts[i] = r
+    return torch.stack(parts, dim=1)
+
+
 def _ln(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
         ) -> torch.Tensor:
     """The reference's layer norm: no bias, biased variance, eps 1e-6
@@ -86,7 +144,12 @@ def _ln(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
 
 class Recsys(nn.Module):
     """The parameters every kind has: the sparse tables and the retrieval
-    tower's item projection."""
+    tower's item projection. A model that holds only this rank's rows of
+    its row-sharded tables (a sharded train state) carries `shards`
+    (`TableShards`); the training and CTR forwards then read the tables
+    through `table_rows` and `bags`."""
+
+    shards = None
 
     def __init__(self, tables, item_proj):
         super().__init__()
@@ -154,7 +217,8 @@ class SASRec(Recsys):
         D = self.pos.shape[1]
         # sqrt(D) rounded to float32, as the reference divides by it
         inv = float(np.sqrt(np.float32(D)))
-        x = lookup(self.tables[0], seq) + self.pos[None, :S]
+        x = table_rows(self, "tables/0", self.tables[0], seq) \
+            + self.pos[None, :S]
         mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
                                      device=x.device))
         for b in self.blocks:
@@ -173,15 +237,19 @@ class SASRec(Recsys):
 
 
 def init_recsys(cfg: RecsysConfig, *, generator: torch.Generator,
-                device: DeviceLike = None) -> Recsys:
+                device: DeviceLike = None, keep=None) -> Recsys:
     """Random parameters of `cfg.kind` on `device` (default: the card),
     drawn from `generator`, with the reference's shapes and scales. Each
-    table is drawn in place at its padded size, one after another."""
+    table is drawn in place at its padded size, one after another;
+    `keep(path, table)`, when given, says what to hold of each table
+    (`tables/i`, `wide/i`) as it comes (a sharded init keeps its rows)."""
     dev = resolve_device(device)
     D = cfg.embed_dim
     kw = dict(generator=generator, device=dev)
-    tables = [truncnorm_init((padded_vocab(v), D), 0.05, **kw)
-              for v in cfg.vocab_sizes]
+    keep = keep or (lambda path, t: t)
+    tables = [keep(f"tables/{i}", truncnorm_init((padded_vocab(v), D), 0.05,
+                                                 **kw))
+              for i, v in enumerate(cfg.vocab_sizes)]
     if cfg.kind == "dlrm":
         bot = mlp_stack((cfg.n_dense,) + cfg.bot_mlp, **kw)
         n_f = cfg.n_sparse + 1
@@ -197,8 +265,9 @@ def init_recsys(cfg: RecsysConfig, *, generator: torch.Generator,
         mlp = mlp_stack((d0,) + cfg.mlp + (1,), **kw)
         return DCNv2(tables, cross, mlp, init_dense((D, D), **kw))
     if cfg.kind == "widedeep":
-        wide = [truncnorm_init((padded_vocab(v), 1), 0.01, **kw)
-                for v in cfg.vocab_sizes]
+        wide = [keep(f"wide/{i}", truncnorm_init((padded_vocab(v), 1), 0.01,
+                                                 **kw))
+                for i, v in enumerate(cfg.vocab_sizes)]
         mlp = mlp_stack((cfg.n_sparse * D,) + cfg.mlp + (1,), **kw)
         return WideDeep(tables, wide, mlp, init_dense((D, D), **kw))
     if cfg.kind == "sasrec":
@@ -269,9 +338,7 @@ def _top(x: torch.Tensor, k: int, *, largest: bool):
 def _sparse_embs(p: Recsys, batch: Dict, cfg: RecsysConfig
                  ) -> torch.Tensor:
     """-> (B, n_sparse, D): each field's bag of ids summed in its table."""
-    sparse = _batch(p, batch, "sparse")
-    return torch.stack([embedding_bag(t, sparse[:, i, :])
-                        for i, t in enumerate(p.tables)], dim=1)
+    return bags(p, p.tables, "tables", _batch(p, batch, "sparse"))
 
 
 def sasrec_hidden(p: SASRec, seq: torch.Tensor, cfg: RecsysConfig
@@ -315,12 +382,13 @@ def _ctr_logits(p: Recsys, batch: Dict, cfg: RecsysConfig) -> torch.Tensor:
         deep = mlp_apply(p.mlp, s.reshape(s.shape[0], -1))[:, 0]
         sparse = _batch(p, batch, "sparse")
         # a left-to-right Python sum over the fields, as the reference's
-        wide = sum(embedding_bag(w, sparse[:, i, :])[:, 0]
-                   for i, w in enumerate(p.wide))
+        w = bags(p, p.wide, "wide", sparse)
+        wide = sum(w[:, i, 0] for i in range(w.shape[1]))
         return deep + wide
     if cfg.kind == "sasrec":
         h = sasrec_hidden(p, _batch(p, batch, "seq"), cfg)     # (B, S, D)
-        tgt = lookup(p.tables[0], _batch(p, batch, "target"))  # (B, D)
+        tgt = table_rows(p, "tables/0", p.tables[0],
+                         _batch(p, batch, "target"))           # (B, D)
         return torch.einsum("bd,bd->b", h[:, -1], tgt)
     raise ValueError(cfg.kind)
 
@@ -334,8 +402,10 @@ def rec_loss(p: Recsys, batch: Dict, cfg: RecsysConfig):
     full_fp32()
     if cfg.kind == "sasrec":
         h = sasrec_hidden(p, _batch(p, batch, "seq"), cfg)     # (B, S, D)
-        pos = lookup(p.tables[0], _batch(p, batch, "pos_items"))
-        neg = lookup(p.tables[0], _batch(p, batch, "neg_items"))
+        pos = table_rows(p, "tables/0", p.tables[0],
+                         _batch(p, batch, "pos_items"))
+        neg = table_rows(p, "tables/0", p.tables[0],
+                         _batch(p, batch, "neg_items"))
         sp = torch.einsum("bsd,bsd->bs", h, pos)
         sn = torch.einsum("bsd,bsd->bs", h, neg)
         m = to_tensor(batch["seq_mask"], p.device, torch.float32)

@@ -18,6 +18,7 @@ products reduce in float32 (`device.exact_reductions`).
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -28,8 +29,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs import LMConfig
 from repro_torch.device import DeviceLike, exact_reductions, \
     resolve_device, to_tensor
+from repro_torch.distributed.act_sharding import cp_attention_wrap
 from repro_torch.models import layers as L
-from repro_torch.models.moe import MoE, init_moe, moe_apply
+from repro_torch.models.moe import MoE, init_moe, moe_apply, moe_apply_ep
+
+
+def _moe_fn():
+    """Global dispatch, or explicit expert parallelism over the installed
+    grid's `model` axis under REPRO_MOE=ep (the reference's `_moe_fn`)."""
+    return moe_apply_ep if os.environ.get("REPRO_MOE") == "ep" \
+        else moe_apply
 
 
 def _dt(cfg: LMConfig) -> torch.dtype:
@@ -75,7 +84,13 @@ class LMLayers(nn.Module):
 
 class LM(nn.Module):
     """`embed` (V, D), `layers` (`LMLayers`), `final_norm` (D,) and, unless
-    the embeddings are tied, `lm_head` (D, V)."""
+    the embeddings are tied, `lm_head` (D, V).
+
+    A model that holds only this rank's blocks of its leaves (a sharded
+    train state) carries `gather`, a `distributed.sharding.LeafGather`:
+    every forward gathers each leaf at use, one layer at a time."""
+
+    gather = None
 
     def __init__(self, embed: torch.Tensor, layers: LMLayers,
                  final_norm: torch.Tensor,
@@ -239,9 +254,18 @@ def _attn(p: Dict, x: torch.Tensor, cfg: LMConfig, *,
         q = L.rope(q, positions, cfg.rope_theta, angles)
         k = L.rope(k, positions, cfg.rope_theta, angles)
     if cache is None:
-        if train:
-            o = L.flash_attention_vjp(q, k, v, 0, True, window, chunked,
-                                      min(512, S), min(1024, S))
+        def flash(qq, kk, vv, off):
+            # blocks adapt to a context-parallel rank's fewer q rows
+            return L.flash_attention_vjp(qq, kk, vv, off, True, window,
+                                         chunked, min(512, qq.shape[1]),
+                                         min(1024, kk.shape[1]))
+        # context-parallel attention: q rows sharded over `model` (train
+        # and prefill), as the reference's `cp_attention_wrap` caller
+        cp = cp_attention_wrap(flash, S)
+        if cp is not None:
+            o = cp(q, k, v)
+        elif train:
+            o = flash(q, k, v, 0)
         else:
             o = L.flash_attention(q, k, v, causal=True, window=window,
                                   chunked=chunked)
@@ -263,10 +287,7 @@ def _ffn(lp: Dict, y: torch.Tensor, cfg: LMConfig):
         return L.swiglu(lp["ffn"], y), None
     B, S, D = y.shape
     moe = lp["moe"]
-    # the reference's `_moe_fn` picks `moe_apply_ep` under an
-    # expert-parallel mesh, which the port has not; without one that
-    # falls back to `moe_apply`
-    f, a = moe_apply(moe, y.reshape(B * S, D), cfg.moe,
+    f, a = _moe_fn()(moe, y.reshape(B * S, D), cfg.moe,
                      n_pad_experts=moe["router"].shape[-1]
                      - cfg.moe.n_experts)
     return f.reshape(B, S, D), a
@@ -287,12 +308,14 @@ def lm_hidden(params: LM, tokens, cfg: LMConfig, *, train: bool = False
     loss (float32 scalar)."""
     exact_reductions()
     tokens = _tokens(params, tokens)
-    x = params.embed[tokens].to(_dt(cfg))
+    x = _leaf(params, "embed")[tokens].to(_dt(cfg))
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     angles = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
     def block(x, lp, li):
+        if params.gather is not None:     # inside the remat: re-gathered
+            lp = params.gather.tree("layers", lp)
         h = _attn(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
                   positions=positions, li=li, train=train, angles=angles)
         x = x + h
@@ -308,11 +331,18 @@ def lm_hidden(params: LM, tokens, cfg: LMConfig, *, train: bool = False
             x, a = block(x, lp, li)
         if a is not None:
             aux = aux + a
-    return L.rms_norm(x, params.final_norm, cfg.norm_eps), aux
+    return L.rms_norm(x, _leaf(params, "final_norm"), cfg.norm_eps), aux
+
+
+def _leaf(params: LM, path: str) -> torch.Tensor:
+    """A top-level leaf, gathered when the model holds only its block."""
+    t = getattr(params, path)
+    return t if params.gather is None else params.gather(path, t)
 
 
 def _unembed(params: LM, cfg: LMConfig) -> torch.Tensor:
-    return params.embed.T if cfg.tie_embeddings else params.lm_head
+    return _leaf(params, "embed").T if cfg.tie_embeddings \
+        else _leaf(params, "lm_head")
 
 
 def chunked_xent(hidden: torch.Tensor, w_out: torch.Tensor,
@@ -383,11 +413,13 @@ def lm_decode_step(params: LM, cache: DecodeCache, token,
     exact_reductions()
     pos = int(pos)
     token = _tokens(params, token)
-    x = params.embed[token][:, None, :].to(_dt(cfg))          # (B, 1, D)
+    x = _leaf(params, "embed")[token][:, None, :].to(_dt(cfg))  # (B, 1, D)
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
     angles = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     for li, lp in enumerate(params.layers.per_layer()):
+        if params.gather is not None:
+            lp = params.gather.tree("layers", lp)
         h = _attn(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
                   positions=positions, li=li,
                   cache=(cache.k[li], cache.v[li]), cache_pos=pos,
@@ -395,6 +427,6 @@ def lm_decode_step(params: LM, cache: DecodeCache, token,
         x = x + h
         f, _ = _ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
         x = x + f
-    x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
+    x = L.rms_norm(x, _leaf(params, "final_norm"), cfg.norm_eps)
     logits = (x[:, 0] @ _unembed(params, cfg)).to(torch.float32)
     return logits, cache

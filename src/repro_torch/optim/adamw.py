@@ -125,11 +125,19 @@ def make_optimizer(lr_fn: Callable, *, b1: float = 0.9, b2: float = 0.95,
                         m, v, master)
 
     @torch.no_grad()
-    def update(grads, state: OptState, params):
+    def update(grads, state: OptState, params,
+               grad_norm: Optional[torch.Tensor] = None,
+               row_mean: Optional[Callable] = None):
+        """`grad_norm`: the clip's global norm when the caller knows it (a
+        sharded step: the norm over every rank's blocks), else the norm
+        of `grads`. `row_mean(path, g)`: a row-Adagrad leaf's mean square
+        over each whole row, for a caller whose blocks cut the rows (else
+        the mean over g's own columns)."""
         ps = _params(params)
         grads = {n: None if g is None else _coalesced(g)
                  for n, g in grads.items()}
-        gn = global_norm(grads).to(state.step.device)
+        gn = (global_norm(grads) if grad_norm is None else grad_norm) \
+            .to(state.step.device)
         scale = (torch.clamp(clip_norm / (gn + 1e-9), max=1.0)
                  if clip_norm else None)
         step = state.step + 1
@@ -153,7 +161,8 @@ def make_optimizer(lr_fn: Callable, *, b1: float = 0.9, b2: float = 0.95,
                 if scale is not None:
                     gv = gv * scale
                 rows_touched += rows.numel()
-                row_sq = torch.mean(gv * gv, dim=tuple(range(1, gv.ndim)))
+                row_sq = (row_mean(n, gv) if row_mean is not None else
+                          torch.mean(gv * gv, dim=tuple(range(1, gv.ndim))))
                 v2 = v[rows] + row_sq
                 v.index_copy_(0, rows, v2)
                 denom = torch.sqrt(v2) + eps

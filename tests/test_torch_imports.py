@@ -73,6 +73,11 @@ LM_MODULES = ("configs", "models.layers", "models.moe", "models.transformer")
 GNN_MODULES = ("kernels.segment", "models.gnn", "models.gnn_sharded",
                "launch.flops", "launch.inputs")
 
+#: the modules of the distributed scaffolding
+DIST_MODULES = ("launch.mesh", "distributed.sharding",
+                "distributed.act_sharding", "distributed.compression",
+                "distributed.pipeline")
+
 _BLOCKER = """
 import importlib, json, sys
 class _Blocked:
@@ -98,7 +103,7 @@ def blocked_imports():
     storage module in turn: module -> 'ok' or the error."""
     code = _BLOCKER.format(forbidden=set(FORBIDDEN),
                            modules=STORAGE_MODULES + TRAIN_MODULES
-                           + LM_MODULES + GNN_MODULES)
+                           + LM_MODULES + GNN_MODULES + DIST_MODULES)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -128,6 +133,29 @@ def test_lm_modules_import_with_jax_and_repro_blocked(blocked_imports,
 def test_gnn_modules_import_with_jax_and_repro_blocked(blocked_imports,
                                                        module):
     assert blocked_imports[module] == "ok"
+
+
+@pytest.mark.parametrize("module", DIST_MODULES)
+def test_dist_modules_import_with_jax_and_repro_blocked(blocked_imports,
+                                                        module):
+    assert blocked_imports[module] == "ok"
+
+
+def test_grid_entry_points_need_a_card_or_device_cpu(tmp_path):
+    """`restore(grid=)`, like the plain restore, reads onto the card unless
+    asked for the CPU; the grid trainer's device is the trainer's."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points run on it")
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch.mesh import ProcessGrid
+    ckpt.save(str(tmp_path), {"a": torch.arange(4.0)}, step=1)
+    grid = ProcessGrid((1, 2), rank=1)
+    kw = dict(grid=grid, layout={"a": (("model",), (4,))})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ckpt.restore(str(tmp_path), {"a": torch.ones(2)}, **kw)
+    got = ckpt.restore(str(tmp_path), {"a": torch.ones(2)}, device="cpu",
+                       **kw)
+    assert got["a"].tolist() == [2.0, 3.0]
 
 
 def test_gnn_entry_points_need_a_card_or_device_cpu():
