@@ -57,6 +57,16 @@ non-zero):
      share, device ops per hop, and the device time of the same graph
      replays back to back from CUDA events; the f32 batch-64 search's
      wall time at K = 2, 4, 8 and 16 hops a replay (`[search_k]`);
+     then `[cells]`: the dry run's aisaq-sift1m serve_q32 and serve_q1k
+     cells (`launch.inputs.build_cell` on grid (1, 1) of a one-rank gloo
+     world in this process: mode A) run their `fn` on this 1M table
+     (`hop_kernel<false>`, `pq_lut_kernel`): inputs shaped as
+     `local_args`, ids equal to `beam_search_device` called directly,
+     predicted argument bytes equal to the held ones; and `[dryrun]`:
+     `launch.dryrun` in a subprocess on this host (the fake 256- and
+     512-rank worlds, meta tensors) for the three ANN archs on both
+     meshes, qwen3-1.7b decode_32k and dcn-v2 serve_p99: argument
+     bytes, collective MB by op, flops x ranks / model flops;
   6. recommender retrieval: SASRec at full width (embed_dim 50, seq_len 50,
      2 blocks) against 1,000,000 candidates (retrieval_cand), PQ m=10
      trained and encoded on the card, 64 one-user requests through
@@ -248,7 +258,8 @@ non-zero):
      the unsharded step's, per-rank peak bytes; the trained DLRM-rm2
      moved to `serve_placement` (tablewise: small tables replicated) and
      served at serve_p99 by `make_serve_step(grid=)` against the training
-     placement's forward;
+     placement's forward; each rank's parameter and optimizer bytes
+     equal to the dry run's train_batch cell's blocks on that grid;
  29. `[dist_lm]`: qwen3-1.7b at its widths, DIST_LM_LAYERS of 28 layers in
      float32, batch 4 x 4,096, 2 steps of `train_loop(grid=(2, 2))`
      (leaves gathered at use a layer at a time) against the unsharded
@@ -261,14 +272,16 @@ non-zero):
      qwen3-1.7b's attention width and 8,192 tokens against one-rank
      attention (loss and gradients), `compressed_psum` bit-equal to the
      same ranks' CPU answer, `pipeline_forward` over 4 stages bit-equal to
-     the stages in sequence; no `[dist_*]` phase launches a port kernel.
+     the stages in sequence, and its gradients (weights and inputs)
+     within TOL_PIPE of autograd through the stages in sequence; no
+     `[dist_*]` phase launches a port kernel.
 Each path's launch counts are reset just before it and read just after;
 the kernels line gives the main path's as `launches`, the storage
 path's as `launches_storage`, the dynamic index's (inserts and readers)
 as `launches_dynamic`, the service's as `launches_service`, the sharded
 phases' (every rank's timed searches, summed) as `launches_sharded` and
 `launches_sharded1m`, the towers' graph requests as
-`launches_towers`; `segment_sum`'s `launches` are the GNN serving
+`launches_towers`, the `[cells]` searches' as `launches_cells`; `segment_sum`'s `launches` are the GNN serving
 path's, and every row has `launches_gnn_train` and
 `launches_gnn_sharded` (every rank's timed float32 step). Each phase's seconds are printed as it ends
 (`[phase_s]`) and all together before the card line. The run's index
@@ -1388,7 +1401,146 @@ def phase_deployment():
             profiled_launches=profiled_last(),
             top=json.dumps([[k[:40], round(t, 4), c]
                             for t, k, c in rows[:10]]))
-    return host_arrays, queries, searches
+    return host_arrays, queries, searches, (idx, lay)
+
+
+# the dry-run cells served on the card (`[cells]`), and the queries the
+# larger one takes
+CELL_ARCH, CELL_SHAPES, CELL_QUERIES = "aisaq-sift1m", ("serve_q32",
+                                                        "serve_q1k"), 1024
+
+
+def phase_cells(index_1m, arrays_1m, card: str) -> dict:
+    """[cells]: the paper's aisaq-sift1m cells of `launch.inputs.
+    build_cell` on grid (1, 1) of a one-rank gloo world in this process
+    (mode A: the whole 7.94 GB chunk table on the rank). Each cell's
+    `fn`, `sharded_search_fn`'s search, runs on the deployment phase's 1M
+    table (already on the card) with its 32 or 1,024 queries, shaped as
+    `local_args` says; its ids against `beam_search_device` called
+    directly with the same arguments; the dry run's predicted argument
+    bytes (`local_bytes`) against the bytes the rank holds. Returns the
+    cells' launches (the direct calls not counted)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.core.device_index import beam_search_device
+    from repro_torch.core.sharded_search import ShardedIndexArrays
+    from repro_torch.data.vectors import make_queries
+    from repro_torch.kernels import _build
+    from repro_torch.launch.inputs import build_cell, local_args, \
+        local_bytes
+    from repro_torch.launch.mesh import ProcessGrid
+    idx, lay = index_1m
+    cfg = get_arch(CELL_ARCH).model
+    queries = make_queries(CELL_QUERIES, arrays_1m[0], seed=5)
+    launches = {k: 0 for k in REPLACES}
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        grid = ProcessGrid((1, 1), ("data", "model"))
+        arrays = ShardedIndexArrays(
+            chunk_words=idx.chunk_words[None], centroids=idx.centroids,
+            ep_ids=idx.ep_ids[None], ep_codes=idx.ep_codes[None],
+            offsets=torch.zeros((1,), dtype=torch.int32, device="cuda"))
+        for name in CELL_SHAPES:
+            cell = build_cell(CELL_ARCH, name, grid)
+            want = local_args(cell, grid)
+            q = torch.from_numpy(queries[:cell.args[1].shape[0]]).cuda()
+            got = [(tuple(t.shape), t.dtype) for t in (*arrays, q)]
+            spec = [(tuple(t.shape), t.dtype) for t in (*want[0], want[1])]
+            require(got == spec, f"{name}: the rank's inputs {got} are not "
+                    f"local_args' {spec}")
+            held = sum(t.numel() * t.element_size() for t in (*arrays, q))
+            predicted = local_bytes(cell, grid)
+            cell.fn(arrays, q)                       # capture
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            ids, d = cell.fn(arrays, q)
+            torch.cuda.synchronize()
+            t_cell = time.perf_counter() - t0
+            for k, v in _build.launch_counts.items():
+                if k in launches:
+                    launches[k] += v
+            direct = beam_search_device(
+                idx, q, k=10, L=128, w=cfg.beamwidth,
+                max_hops=cfg.max_hops, layout=lay, metric=cfg.metric)
+            equal = bool(torch.equal(ids, direct[0]))
+            log("cells", arch=CELL_ARCH, shape=name, grid="[1,1]",
+                mode=cell.meta["mode"], n_shards=cell.meta["n_shards"],
+                chunk_gb_per_dev=cell.meta["chunk_gb_per_dev"],
+                batch=q.shape[0], ids_equal_direct=equal,
+                valid_ids=int((ids >= 0).sum()),
+                predicted_arg_bytes=predicted, held_arg_bytes=held,
+                search_ms=f"{t_cell * 1e3:.3f}", card=json.dumps(card))
+            require(equal, f"{name}: the cell's ids differ from "
+                    "beam_search_device's")
+            require(predicted == held, f"{name}: the dry run predicts "
+                    f"{predicted} argument bytes, the rank holds {held}")
+    finally:
+        dist.destroy_process_group()
+    log("cells", launches=compact({k: v for k, v in launches.items() if v}))
+    require(launches["fused_hop_f32"] > 0 and launches["pq_lut"] > 0,
+            "the cells launched no hop_kernel<false> or pq_lut_kernel")
+    return launches
+
+
+# the dry run on the card's host (`[dryrun]`): (arch, shape or None for
+# all its shapes, both meshes)
+DRYRUN_CELLS = (("aisaq-sift1m", None, True), ("aisaq-sift1b", None, True),
+                ("aisaq-kilt-e5", None, True),
+                ("qwen3-1.7b", "decode_32k", False),
+                ("dcn-v2", "serve_p99", False))
+
+_DRYRUN = """
+import sys
+from repro_torch.launch import dryrun
+for arch, shape, both in %r:
+    argv = ["--arch", arch, "--out", sys.argv[1], "--force"]
+    argv += ["--shape", shape] if shape else []
+    argv += ["--both-meshes"] if both else []
+    assert dryrun.main(argv) == 0, (arch, shape)
+"""
+
+
+def phase_dryrun(root: str, card: str) -> None:
+    """[dryrun]: `python -m repro_torch.launch.dryrun`'s cells on this
+    host in a subprocess (the fake 256- and 512-rank worlds and the meta
+    trace of the card's torch): the ANN archs on both meshes, qwen3-1.7b
+    decode_32k and dcn-v2 serve_p99 on 256 ranks; one line a record
+    (argument bytes, collective MB by op, flops x ranks / model flops)."""
+    out = os.path.join(root, "dryrun")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env.pop("REPRO_GNN", None)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _DRYRUN % (DRYRUN_CELLS,),
+                        out], env=env, capture_output=True, text=True,
+                       timeout=600)
+    require(r.returncode == 0, "the dry run failed: "
+            + r.stdout[-1500:] + r.stderr[-1500:])
+    n = 0
+    for fname in sorted(os.listdir(out)):
+        with open(os.path.join(out, fname)) as f:
+            rec = json.load(f)
+        for sec in ("memory", "cost", "collectives"):
+            require("error" not in rec[sec],
+                    f"{fname}: {sec} {rec[sec]}")
+        coll = rec["collectives"]
+        log("dryrun", arch=rec["arch"], shape=rec["shape"],
+            mesh=compact(rec["mesh"]), n_devices=rec["n_devices"],
+            arg_bytes=rec["memory"]["argument_size_in_bytes"],
+            collective_MB=compact({k: round(v["bytes"] / 1e6, 3)
+                                   for k, v in coll.items()}),
+            collective_counts=compact({k: v["count"]
+                                       for k, v in coll.items()}),
+            flops=rec["cost"]["flops"],
+            flops_x_ranks_over_model=rec["cost"].get(
+                "flops_x_ranks_over_model"),
+            t_build_s=rec["t_build_s"], t_trace_s=rec["t_trace_s"],
+            mode=rec["meta"].get("mode", "-"), card=json.dumps(card))
+        n += 1
+    log("dryrun", records=n, wall_s=f"{time.perf_counter() - t0:.2f}")
+    require(n == 3 * 2 * 2 + 2, f"{n} dry-run records")
 
 
 def phase_diskann(arrays, aisaq_idx, aisaq_lay, queries, gt, aisaq_ids):
@@ -5547,9 +5699,32 @@ def dist_pipe_part(rank: int) -> dict:
         seq.append(h)
     seq = torch.stack(seq)
     torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+    # the gradients of sum(out * R): the schedule's backward against
+    # autograd through the stages in sequence
+    R = torch.randn((M, mb, d), generator=g, device="cuda")
+    stage = grid.coords()[0]
+    mine = SH.shard(W, ("pp",), grid)[0].clone().requires_grad_(True)
+    xs = x.clone().requires_grad_(True)
+    torch.autograd.grad((fn(mine, xs) * R).sum(), [mine, xs])   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gw, gx = torch.autograd.grad((fn(mine, xs) * R).sum(), [mine, xs])
+    torch.cuda.synchronize()
+    t_grad = time.perf_counter() - t0
+    Ws, xq = W.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    hs = []
+    for m in range(M):
+        h = xq[m]
+        for s in range(4):
+            h = stage_fn(Ws[s], h)
+        hs.append(h)
+    sw, sx = torch.autograd.grad((torch.stack(hs) * R).sum(), [Ws, xq])
     return dict(pipe_bit_equal=bool(torch.equal(out, seq)),
-                pipe_ms=t_pipe * 1e3,
-                seq_ms=(time.perf_counter() - t0) * 1e3)
+                pipe_ms=t_pipe * 1e3, seq_ms=t_seq * 1e3,
+                pipe_grad_ms=t_grad * 1e3,
+                pipe_gw_err=float((gw - sw[stage]).abs().max()),
+                pipe_gx_err=float((gx - sx).abs().max()))
 
 
 def dist_rank_job(rank: int, job: dict, state: dict) -> dict:
@@ -5596,6 +5771,26 @@ def p50_ms(seconds) -> str:
     return f"{float(np.percentile(np.asarray(seconds) * 1e3, 50)):.1f}"
 
 
+def predicted_state_bytes(aid: str, grid) -> list:
+    """Each rank's bytes of the parameters and the optimizer's `m` and
+    `v` (what `[dist_rec]` measures) in the dry run's train_batch cell on
+    `grid`, from the blocks of the cell's specs (meta: nothing is
+    drawn)."""
+    from repro_torch.launch import inputs as I
+    from repro_torch.launch.mesh import ProcessGrid
+    axes = ("data", "model")
+    cell = I.build_cell(aid, "train_batch",
+                        ProcessGrid(grid, axes, rank=0))
+    out = []
+    for r in range(int(np.prod(grid))):
+        g = ProcessGrid(grid, axes, rank=r)
+        out.append(sum(I._block(t, sp, g, r).numel() * t.element_size()
+                       for p, t, sp in I.arg_leaves(cell)
+                       if p.startswith(("0/params/", "0/opt/m/",
+                                        "0/opt/v/"))))
+    return out
+
+
 def phase_dist_rec(world: "RankWorld", card: str) -> int:
     """[dist_rec]: DLRM-rm2 at its published cardinalities (48.08 GB of
     tables) on grid (1, 4), DCN-v2 on (2, 2): DIST_REC_STEPS steps of
@@ -5617,6 +5812,7 @@ def phase_dist_rec(world: "RankWorld", card: str) -> int:
                          "serve": aid == "dlrm-rm2"}, timeout=900)
         per = int(np.prod(grid)) // grid[0]
         err = max(loss_err(a["losses"], ref["losses"]) for a in ans.values())
+        predicted = predicted_state_bytes(aid, grid)
         extra = {}
         if aid == "dlrm-rm2":
             extra = dict(serve_err=compact([f"{ans[r]['serve_err']:.2e}"
@@ -5631,6 +5827,7 @@ def phase_dist_rec(world: "RankWorld", card: str) -> int:
                                       for r in sorted(ans)]),
             rank_state_bytes=compact([ans[r]["state_bytes"]
                                       for r in sorted(ans)]),
+            dryrun_state_bytes=compact(predicted),
             losses=compact([f"{x:.6f}" for x in ans[0]["losses"]]),
             unsharded_losses=compact([f"{x:.6f}" for x in ref["losses"]]),
             loss_rel_err=f"{err:.2e}",
@@ -5647,6 +5844,9 @@ def phase_dist_rec(world: "RankWorld", card: str) -> int:
                 f"{aid}: a rank's tables are not 1/{per} of the tables")
         require(all(a["losses"] == ans[0]["losses"] for a in ans.values()),
                 f"{aid}: the ranks' losses differ")
+        require([ans[r]["state_bytes"] for r in sorted(ans)] == predicted,
+                f"{aid}: the ranks hold other state bytes than the dry "
+                f"run's {predicted}")
         if aid == "dlrm-rm2":
             require(all(a["serve_err"] <= 1e-4 for a in ans.values()),
                     "tablewise serving differs from the training placement")
@@ -5726,6 +5926,8 @@ def phase_dist_parts(world: "RankWorld", card: str) -> int:
     log("dist_parts", part="pipeline", stages=4, grid="[4,1]",
         bit_equal_sequential=col("pipe_bit_equal", "{}"),
         pipe_ms=col("pipe_ms", "{:.1f}"), seq_ms=col("seq_ms", "{:.1f}"),
+        grad_w_abs_err=col("pipe_gw_err"), grad_x_abs_err=col("pipe_gx_err"),
+        forward_backward_ms=col("pipe_grad_ms", "{:.1f}"),
         peak_bytes=col("peak_bytes", "{}"), kernel_launches=launches,
         card=json.dumps(card))
     for r, a in ans.items():
@@ -5740,6 +5942,9 @@ def phase_dist_parts(world: "RankWorld", card: str) -> int:
         require(a["psum_bit_equal"] and a["psum_rel"] < 0.02,
                 f"rank {r}: compressed_psum differs from the CPU's")
         require(a["pipe_bit_equal"], f"rank {r}: the pipeline differs")
+        require(max(a["pipe_gw_err"], a["pipe_gx_err"]) <= TOL_PIPE,
+                f"rank {r}: the pipeline's gradients differ from the "
+                f"sequence's by {a['pipe_gw_err']}, {a['pipe_gx_err']}")
     require(launches == 0, "the distributed parts launched a kernel")
     return launches
 
@@ -5808,10 +6013,14 @@ def run_phases(root: str) -> int:
     timed("diskann", phase_diskann, arrays, idx, lay, queries, gt, served)
     del idx
     torch.cuda.empty_cache()
-    arrays_1m, queries_1m, searches_1m = timed("deployment",
-                                               phase_deployment)
+    arrays_1m, queries_1m, searches_1m, index_1m = timed("deployment",
+                                                         phase_deployment)
+    cells_launches = timed("cells", phase_cells, index_1m, arrays_1m,
+                           card_line())
+    del index_1m
     paths_1m = save_1m(arrays_1m, queries_1m, root)
     torch.cuda.empty_cache()
+    timed("dryrun", phase_dryrun, root, card_line())
     rec_launches, adc, rec_errs = timed("recsys", phase_recsys)
     torch.cuda.empty_cache()
     bulk_launches, bulk, bulk_errs = timed("bulk_adc", phase_bulk_adc)
@@ -5906,6 +6115,7 @@ def run_phases(root: str) -> int:
             "launches_sharded": sharded_launches.get(name, 0),
             "launches_sharded1m": sharded1m_launches.get(name, 0),
             "launches_towers": tower_launches.get(name, 0),
+            "launches_cells": cells_launches.get(name, 0),
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b, "bound_by": by,
             "library_ms": t["library_ms"],

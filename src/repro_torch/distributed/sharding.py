@@ -279,6 +279,9 @@ def unshard(block: torch.Tensor, spec: Spec, grid: ProcessGrid,
         for d, e in enumerate(spec):
             shape[d] *= grid.size(_axes(e))
     shape = tuple(int(s) for s in shape)
+    if block.is_meta:           # a shape trace: the gather, then the shape
+        all_gather(block, group, members)
+        return block.new_empty(shape)
     # blocks of an uneven split differ by one: gather them padded to the
     # first (the longest), then cut each to its own size
     first = block_slices(shape, spec, grid, members[0])

@@ -23,9 +23,10 @@ reference's GSPMD step:
     separate int8 entry point);
   * the clip's global norm sums the squares of every block once (a
     replicated block on the rank whose other coordinates are 0);
-  * the GNN keeps its partitioned loss (`gnn_sharded`, picked by
-    `make_loss_fn(arch, shape, grid)`), whose gradients are the global
-    ones already.
+  * the GNN's full-graph step keeps its partitioned loss (`gnn_sharded`,
+    picked by `make_loss_fn(arch, shape, grid)`), whose gradients are the
+    global ones already; its sampled-minibatch and batched-graph steps
+    are data parallel like the others.
 The optimizer then updates each rank's blocks: AdamW and row-wise Adagrad
 are elementwise and row-wise, so the blocks of the update are the update
 of the blocks. No tensor-parallel arithmetic: the ranks of a `model` group
@@ -201,12 +202,19 @@ def attach(params: nn.Module, place: Placement) -> nn.Module:
     return params
 
 
+def shard_params(params: nn.Module, place: Placement) -> nn.Module:
+    """This rank's blocks of a full model (its parameters replaced in
+    place), marked for the sharded forward: `shard_state` for a model
+    without an optimizer state (`serve_placement`'s)."""
+    return attach(SH.shard_module(params, place.params, place.grid), place)
+
+
 def shard_state(state: "TrainState", place: Placement) -> "TrainState":
     """This rank's blocks of a full state (its module's parameters are
     replaced in place, so the full tensors can go; the optimizer leaves
     are copied), marked for the sharded forward (`attach`)."""
     grid = place.grid
-    SH.shard_module(state.params, place.params, grid)
+    params = shard_params(state.params, place)
 
     def blocks(d, specs):
         out = {}
@@ -217,7 +225,7 @@ def shard_state(state: "TrainState", place: Placement) -> "TrainState":
     opt = OptState(state.opt.step, blocks(state.opt.m, place.opt.m),
                    blocks(state.opt.v, place.opt.v),
                    blocks(state.opt.master, place.opt.master))
-    return TrainState(attach(state.params, place), opt)
+    return TrainState(params, opt)
 
 
 def _dp_group(grid):
@@ -286,11 +294,16 @@ def make_train_step(arch: ArchConfig, shape: ShapeConfig, optimizer=None,
     `grid`: the sharded step (module docstring) on every rank of the grid
     together; the state is `place`'s (`shard_state`), the batch the global
     one, and the loss the mean over dp (the other metrics are this rank's).
-    A GNN's state is replicated (`place` may be None) and its loss the
-    partitioned one, its states gathered in `wire_dtype`."""
+    A GNN's state is replicated (`place` may be None); its full-graph
+    loss is the partitioned one, its states gathered in `wire_dtype`, and
+    its sampled-minibatch and batched-graph steps are data parallel (the
+    batch over dp, the gradients averaged over dp)."""
     loss_fn = make_loss_fn(arch, shape, grid, wire_dtype)
     _, opt_update = optimizer or default_optimizer()
     gnn = arch.family == "gnn"
+    # the partitioned full-graph loss takes the rank's own edges, and its
+    # gradients are the global ones already
+    partitioned = gnn and shape.kind == "gnn_full"
     if grid is not None and place is None and not gnn:
         raise ValueError("a sharded step needs the state's Placement")
 
@@ -306,7 +319,7 @@ def make_train_step(arch: ArchConfig, shape: ShapeConfig, optimizer=None,
                           grid.group(cut)[0]) / width
 
     def train_step(state: TrainState, batch: dict):
-        if grid is not None and not gnn:
+        if grid is not None and not partitioned:
             batch = SH.shard_batch(batch, shape.kind, grid)
         if microbatches == 1:
             loss, metrics, grads = _grads(loss_fn, state.params, batch)
@@ -327,7 +340,7 @@ def make_train_step(arch: ArchConfig, shape: ShapeConfig, optimizer=None,
             loss = l_sum / microbatches
         gn = None
         if grid is not None:
-            if not gnn:      # the partitioned GNN loss's are global already
+            if not partitioned:
                 grads = _reduce_grads(grads, place, grid)
                 group = _dp_group(grid)
                 if group is not None:
@@ -348,18 +361,25 @@ def make_serve_step(arch: ArchConfig, shape: ShapeConfig,
     minibatch forward's logits; recsys: CTR logits or the retrieval
     top-100.
 
-    `grid` (LM and recommender CTR): every rank of the grid serves
+    `grid` (LM and recommenders): every rank of the grid serves
     together; the parameters are this rank's blocks under
     `serve_placement` (`shard_state`, `reshard`), the batch the global one,
     of which the step takes this rank's dp block (`batch_specs`), and
-    the answer is that block's."""
+    the answer is that block's. Decode takes this rank's block of the KV
+    cache: its dp block of the batch where the batch divides over dp
+    (else the whole batch, replicated, as the reference's long_500k
+    cell), and its `model` block of the sequence, attended to in
+    parallel (`transformer.lm_decode_step(..., seq_group=)`). Retrieval
+    (one user, the candidates replicated) runs on every rank alike: the
+    user's and the candidates' rows of a row-sharded table are read
+    through `recsys.table_rows` / `bags` (sums over `model`), so every
+    rank returns the unsharded top-k."""
     if grid is not None:
-        if arch.family == "gnn" or shape.kind == "rec_retrieval":
+        if arch.family == "gnn":
             raise ValueError(f"no sharded serve step for {shape.kind}")
         step = make_serve_step(arch, shape)
         if shape.kind == "lm_decode":
-            return lambda p, cache, b: step(
-                p, cache, SH.shard_batch(b, shape.kind, grid))
+            return _sp_decode_step(arch, grid)
         return lambda p, b: step(p, SH.shard_batch(b, shape.kind, grid))
     if arch.family == "lm":
         from repro_torch.models import transformer as T
@@ -386,6 +406,27 @@ def make_serve_step(arch: ArchConfig, shape: ShapeConfig,
     if shape.kind == "rec_retrieval":
         return lambda p, b: R.retrieval_topk(p, b, arch.model, k=100)
     return lambda p, b: R.rec_forward(p, b, arch.model)
+
+
+def _sp_decode_step(arch: ArchConfig, grid) -> Callable:
+    """step(p, cache, b) on a rank's block of the KV cache (L, B_l, T_l,
+    KVH, hd): B_l the dp block of the batch (or all of it), T_l the
+    `model` block of the sequence."""
+    from repro_torch.models import transformer as T
+    dp = SH.dp_axes(grid)
+    seq_group = grid.group(("model",)) if "model" in grid.axis_names \
+        else None
+
+    def step(p, cache, b):
+        B = b["token"].shape[0]
+        bax = dp if dp and B % grid.size(dp) == 0 else None
+        token = SH.shard(b["token"], SH.P(bax), grid)
+        lo = 0
+        if seq_group is not None:
+            lo = grid.index(("model",)) * cache.k.shape[2]
+        return T.lm_decode_step(p, cache, token, b["pos"], arch.model,
+                                seq_group=seq_group, seq_lo=lo)
+    return step
 
 
 def state_to(state: TrainState, device: DeviceLike = None) -> TrainState:

@@ -129,6 +129,8 @@ def prepare_csr(edges, n_rows: int, *, n_src: Optional[int] = None,
         dev = resolve_device(device)
     e = to_tensor(edges, dev)
     n_src = n_rows if n_src is None else n_src
+    if dev.type == "meta":
+        return _meta_graph(e.shape[0], n_rows, n_src)
     src, dst = e[:, 0].long(), e[:, 1].long()
     ok = (dst >= 0) & (dst < n_rows)
     deg = torch.bincount(dst[ok], minlength=n_rows).to(torch.float32)
@@ -148,13 +150,31 @@ def prepare_csr(edges, n_rows: int, *, n_src: Optional[int] = None,
                     deg=deg)
 
 
+def _meta_graph(n_edges: int, n_rows: int, n_src: int) -> GraphCSR:
+    """A graph's CSRs as meta tensors for a meta trace (`launch.dryrun`),
+    which cannot size what the edges hold: every edge counts as valid, no
+    row as a hub."""
+    def csr(rows: int, cols: int) -> CSR:
+        def z(n, dt):
+            return torch.empty((n,), dtype=dt, device="meta")
+        return CSR(indptr=z(rows + 1, torch.int64),
+                   col=z(n_edges, torch.int32), n_cols=cols,
+                   hub_rows=z(0, torch.int32), hub_first=z(1, torch.int32),
+                   chunk_row=z(0, torch.int32), chunk_beg=z(0, torch.int64))
+    return GraphCSR(by_dst=csr(n_rows, n_src), by_src=csr(n_src, n_rows),
+                    deg=torch.empty((n_rows,), device="meta"))
+
+
 def csr_sum(x: torch.Tensor, csr: CSR) -> torch.Tensor:
     """(csr.n_rows, F) float32: row r the sum of x's rows that `csr` lists
     for r, in its order. CUDA tensors launch the kernel; CPU tensors take
-    `ref.segment_sum_ref`."""
+    `ref.segment_sum_ref`; meta ones (a meta graph) give the shape."""
     if x.ndim != 2 or x.shape[0] != csr.n_cols:
         raise ValueError(f"x {tuple(x.shape)} does not have the CSR's "
                          f"{csr.n_cols} source rows")
+    if x.is_meta and csr.col.is_meta:
+        # a shape trace (`launch.dryrun`) over `_meta_graph`'s CSRs
+        return x.new_empty((csr.n_rows, x.shape[1]), dtype=torch.float32)
     if not _build.on_cuda(x, csr.indptr, csr.col):
         return ref.segment_sum_ref(x, csr.col, csr.rows(), csr.n_rows)
     F = x.shape[1]

@@ -21,10 +21,17 @@ gloo group (several ranks sharing one card; NCCL refuses two ranks on one
 GPU) every collective below copies to the host and back. NCCL, one card a
 rank, runs them on the card. Gloo refuses bfloat16 tensors: a gather moves
 their bytes (exact), a sum runs in float32.
+
+`fake_world(n)` starts a world of n ranks in one process whose
+collectives move nothing (torch's "fake" backend): with meta tensors it
+traces what a rank of an n-rank grid holds and sends (`launch.dryrun`).
+`record_collectives()` counts every collective below while it is open.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import contextlib
+import math
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +69,7 @@ class ProcessGrid:
             raise ValueError(f"rank {rank} is outside a {shape} grid")
         self.world, self.rank = n, int(rank)
         self._groups: Dict[Tuple[str, ...], tuple] = {}
+        self._coords: Dict[int, Tuple[int, ...]] = {}
 
     def __repr__(self) -> str:
         return (f"ProcessGrid({self.shape}, {self.axis_names}, "
@@ -74,13 +82,16 @@ class ProcessGrid:
 
     def coords(self, rank: int = None) -> Tuple[int, ...]:
         r = self.rank if rank is None else rank
-        return tuple(int(c) for c in np.unravel_index(r, self.shape))
+        if r not in self._coords:
+            self._coords[r] = tuple(int(c) for c in
+                                    np.unravel_index(r, self.shape))
+        return self._coords[r]
 
     def _axis(self, name: str) -> int:
         return self.axis_names.index(name)
 
     def size(self, axes: Sequence[str]) -> int:
-        return int(np.prod([self.shape[self._axis(a)] for a in axes]))
+        return math.prod(self.shape[self._axis(a)] for a in axes)
 
     def index(self, axes: Sequence[str], rank: int = None) -> int:
         """The rank's block along `axes` taken together, the first one
@@ -138,6 +149,20 @@ def make_production_grid(*, multi_pod: bool = False) -> ProcessGrid:
     return ProcessGrid(shape, axes)
 
 
+def fake_world(n: int, rank: int = 0) -> None:
+    """Initialise the default process group as a world of `n` ranks, this
+    process rank `rank`, on torch's fake backend: every collective returns
+    at once and moves nothing, so meta tensors trace one rank's part of an
+    n-rank program. A fake world already up is replaced; any other raises."""
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("a real process group is initialised")
+        dist.destroy_process_group()
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
+
+
 def make_test_grid(shape: Sequence[int] = (2, 2),
                    axes: Sequence[str] = ("data", "model")) -> ProcessGrid:
     """A small grid for multi-process tests (the reference's is (2, 4) on
@@ -148,6 +173,38 @@ def make_test_grid(shape: Sequence[int] = (2, 2),
 # ---------------------------------------------------------------------------
 # collectives (through the host for CUDA tensors on gloo)
 # ---------------------------------------------------------------------------
+
+
+_RECORD: Optional[Dict[str, Dict[str, int]]] = None
+
+
+@contextlib.contextmanager
+def record_collectives() -> Iterator[Dict[str, Dict[str, int]]]:
+    """Counts the collectives below while open: yields {op: {"count",
+    "bytes"}} under the reference's HLO names ("all-reduce", "all-gather",
+    "broadcast", "collective-permute" for `isend` and `recv`, counted at
+    each end), bytes being each occurrence's output on this rank (the
+    reference's `dryrun.collective_bytes` convention): the reduced
+    tensor as it goes on the wire, the gathered stack, the broadcast or
+    sent / received tensor. A group of one rank moves nothing and counts
+    nothing."""
+    global _RECORD
+    prev, _RECORD = _RECORD, {}
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = prev
+
+
+def _note(op: str, nbytes: int) -> None:
+    if _RECORD is not None:
+        c = _RECORD.setdefault(op, {"count": 0, "bytes": 0})
+        c["count"] += 1
+        c["bytes"] += int(nbytes)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def via_host(t: torch.Tensor, group) -> bool:
@@ -171,6 +228,7 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     w = _wire(x, group)
     w = w.clone() if w.data_ptr() == x.data_ptr() else w
     dist.all_reduce(w, op=_OPS[op], group=group)
+    _note("all-reduce", _nbytes(w))
     return w.to(device=t.device, dtype=t.dtype)
 
 
@@ -181,10 +239,16 @@ def all_gather(t: torch.Tensor, group, members: Sequence[int]
     n = len(members)
     if n == 1:
         return t[None]
+    if t.is_meta:
+        # a shape trace (`launch.dryrun`): the answer is its shape (the
+        # fake backend's per-member checks cost ~17 ms a 256-rank call)
+        _note("all-gather", n * _nbytes(t))
+        return t.new_empty((n,) + tuple(t.shape))
     bits = t.view(torch.uint8) if t.dtype == torch.bfloat16 else t
     src = _wire(bits, group)
     out = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(out, src, group=group)
+    _note("all-gather", n * _nbytes(src))
     by_rank = dict(zip(dist.get_process_group_ranks(group), out))
     stacked = torch.stack([by_rank[r] for r in members]).to(t.device)
     return stacked.view(t.dtype) if t.dtype == torch.bfloat16 else stacked
@@ -212,6 +276,7 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     bits = t.view(torch.uint8) if t.dtype == torch.bfloat16 else t
     w = _wire(bits, group)
     dist.broadcast(w, src=src, group=group)
+    _note("broadcast", _nbytes(w))
     w = w.to(t.device)
     return w.view(t.dtype) if t.dtype == torch.bfloat16 else w
 
@@ -220,6 +285,7 @@ def isend(t: torch.Tensor, dst: int):
     """Start sending t to world rank `dst`; returns (work, the tensor on
     the wire), both to be kept until `work.wait()`."""
     w = _wire(t, dist.group.WORLD)
+    _note("collective-permute", _nbytes(w))
     return dist.isend(w, dst), w
 
 
@@ -229,6 +295,7 @@ def recv(like: torch.Tensor, src: int) -> torch.Tensor:
     w = torch.empty_like(like, device="cpu" if via_host(
         like, dist.group.WORLD) else like.device)
     dist.recv(w, src)
+    _note("collective-permute", _nbytes(w))
     return w.to(like.device)
 
 

@@ -300,6 +300,12 @@ class _Blocks:
         self.B, self.Sq, self.H, self.hd = q.shape
         self.Skv, self.KVH = k.shape[1], k.shape[2]
         self.G = self.H // self.KVH
+        if q.is_meta:
+            # a shape trace (`launch.dryrun`): at most 8 blocks a side,
+            # so a 32k-token trace runs at most 64 block pairs; the flops
+            # it counts skip the empty blocks at that coarser grain
+            block_q = max(block_q, -(-self.Sq // 8))
+            block_kv = max(block_kv, -(-self.Skv // 8))
         self.bq, self.bk = block_q, block_kv
         self.nq, self.nk = -(-self.Sq // block_q), -(-self.Skv // block_kv)
         self.q_off = int(q_off)
@@ -458,38 +464,73 @@ def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            block_q, block_kv)
 
 
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                     window: int = 0, chunked: bool = False) -> torch.Tensor:
-    """Single-token decode. q: (B, 1, H, hd); caches: (B, T, KVH, hd);
-    cache_len (B,) int, the new token at position cache_len - 1.
-
-    Each product reads the cache once as a (T, KVH*hd) matrix: q is laid
-    out block-diagonally, (H, KVH*hd) with head h's row non-zero only in
-    its KV head's hd columns, so the scores are one float32-accumulating
-    batched product (the zeros add exact zeros), and `p @ v` another whose
-    diagonal blocks are the heads' outputs."""
+def _decode_scores(q: torch.Tensor, k_cache: torch.Tensor,
+                   qpos: torch.Tensor, k_lo: int, window: int,
+                   chunked: bool) -> torch.Tensor:
+    """(B, H, T) float32 scores of the new token (at positions qpos, (B,))
+    against caches holding positions [k_lo, k_lo + T), the masked ones
+    NEG_INF. q is laid out block-diagonally, (H, KVH*hd) with head h's
+    row non-zero only in its KV head's hd columns, so the scores are one
+    float32-accumulating batched product (the zeros add exact zeros)."""
     B, _, H, hd = q.shape
     T, KVH = k_cache.shape[1], k_cache.shape[2]
-    G = H // KVH
-    qr = q.reshape(B, KVH, G, hd) * hd ** -0.5
+    qr = q.reshape(B, KVH, H // KVH, hd) * hd ** -0.5
     eye = torch.eye(KVH, dtype=q.dtype, device=q.device)
     qd = (qr[:, :, :, None, :] * eye[None, :, None, :, None]) \
         .reshape(B, H, KVH * hd)
     s = mm_f32(qd, k_cache.reshape(B, T, KVH * hd).transpose(1, 2))
-    pos = torch.arange(T, device=q.device)
-    qpos = cache_len.to(pos.dtype) - 1                   # the new token
-    ok = pos[None, :] < cache_len[:, None]
+    pos = k_lo + torch.arange(T, device=q.device)
+    qpos = qpos.to(pos.dtype)
+    ok = pos[None, :] <= qpos[:, None]
     if window > 0 and not chunked:
         ok = ok & (qpos[:, None] - pos[None, :] < window)
     if window > 0 and chunked:
         ok = ok & (torch.div(pos[None, :], window, rounding_mode="floor")
                    == torch.div(qpos[:, None], window, rounding_mode="floor"))
-    s = torch.where(ok[:, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    return torch.where(ok[:, None, :], s, NEG_INF)
+
+
+def _decode_heads(p: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
+    """(B, H, hd) float32: `p @ v` over the cache read once as a (T,
+    KVH*hd) matrix, whose diagonal blocks are the heads' outputs."""
+    B, H, T = p.shape
+    KVH, hd = v_cache.shape[2], v_cache.shape[3]
     r = mm_f32(p.to(v_cache.dtype), v_cache.reshape(B, T, KVH * hd))
-    out = torch.diagonal(r.view(B, KVH, G, KVH, hd), dim1=1, dim2=3)
-    return out.permute(0, 3, 1, 2).reshape(B, 1, H, hd).to(q.dtype)
+    out = torch.diagonal(r.view(B, KVH, H // KVH, KVH, hd), dim1=1, dim2=3)
+    return out.permute(0, 3, 1, 2).reshape(B, H, hd)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                     window: int = 0, chunked: bool = False) -> torch.Tensor:
+    """Single-token decode. q: (B, 1, H, hd); caches: (B, T, KVH, hd);
+    cache_len (B,) int, the new token at position cache_len - 1. Each
+    product reads the cache once (`_decode_scores`, `_decode_heads`)."""
+    B, _, H, hd = q.shape
+    s = _decode_scores(q, k_cache, cache_len - 1, 0, window, chunked)
+    out = _decode_heads(torch.softmax(s, dim=-1), v_cache)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def decode_attention_sp(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, qpos: torch.Tensor,
+                        k_lo: int, group, *, window: int = 0,
+                        chunked: bool = False) -> torch.Tensor:
+    """`decode_attention` over a sequence cut across the ranks of `group`
+    (sequence-parallel decode): this rank's caches (B, T_l, KVH, hd) hold
+    positions [k_lo, k_lo + T_l), qpos (B,) is the new token's position.
+    Each rank scores its block; the softmax's max is all-reduced, then the
+    rank's unnormalised outputs and sums in one float32 all-reduce, and
+    their quotient is the attention."""
+    from repro_torch.launch.mesh import all_reduce
+    B, _, H, hd = q.shape
+    s = _decode_scores(q, k_cache, qpos, k_lo, window, chunked)
+    top = all_reduce(s.amax(dim=-1, keepdim=True), group, "max")
+    p = torch.exp(s - top)                                # (B, H, T_l)
+    out = _decode_heads(p, v_cache).reshape(B, H * hd)
+    tot = all_reduce(torch.cat([out, p.sum(-1)], dim=-1), group)
+    out = tot[:, :H * hd].view(B, H, hd) / tot[:, H * hd:, None]
+    return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

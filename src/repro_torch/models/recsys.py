@@ -91,7 +91,12 @@ def _local_rows(table: torch.Tensor, idx: torch.Tensor, lo: int
     of `idx` in that range, zeros for the others (..., D). Under autograd
     the table's gradient is sparse over its own rows, by local id."""
     flat = idx.reshape(-1).long()
-    pos = ((flat >= lo) & (flat < lo + table.shape[0])).nonzero()[:, 0]
+    if flat.device.type == "meta":
+        # a meta trace (`launch.dryrun`) cannot size the ids in range:
+        # it takes every id as one (the most the rank can read)
+        pos = torch.arange(flat.numel(), device=flat.device)
+    else:
+        pos = ((flat >= lo) & (flat < lo + table.shape[0])).nonzero()[:, 0]
     e = lookup(table, flat[pos] - lo)
     out = e.new_zeros((flat.numel(),) + tuple(table.shape[1:])) \
         .index_copy(0, pos, e)
@@ -443,8 +448,10 @@ def user_tower(p: Recsys, batch: Dict, cfg: RecsysConfig) -> torch.Tensor:
 
 
 def _project(p: Recsys, rows: torch.Tensor) -> torch.Tensor:
+    """(C, D): the item table's rows `rows`, projected; a row-sharded
+    item table is read through `table_rows` (a sum over `model`)."""
     full_fp32()
-    return p.tables[0][rows] @ p.item_proj
+    return table_rows(p, "tables/0", p.tables[0], rows) @ p.item_proj
 
 
 @torch.no_grad()

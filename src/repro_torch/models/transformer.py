@@ -19,7 +19,7 @@ products reduce in float32 (`device.exact_reductions`).
 from __future__ import annotations
 
 import os
-from typing import Dict, List, NamedTuple, Optional, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -229,13 +229,18 @@ def _attn(p: Dict, x: torch.Tensor, cfg: LMConfig, *,
           positions: torch.Tensor, li: int,
           cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
           cache_pos: Optional[int] = None, train: bool = False,
-          angles: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+          angles: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+          seq: Optional[Tuple[Any, int]] = None):
     """One layer's attention. Without a cache: causal flash attention
     (training through `flash_attention_vjp`, with blocks of at most 512
     queries and 1,024 keys). With one: the new keys and values are
     written into the cache in place at `cache_pos` and the token attends
-    to the cache. `angles`: the rotary cos and sin of `positions`, shared
-    by the layers of one forward."""
+    to the cache. `seq` = (process group, first position): the cache is
+    this rank's block of a sequence cut over the group, `cache_pos` a
+    0-d tensor; the rank holding it writes the new keys, and the token
+    attends over every rank's block (`decode_attention_sp`). `angles`:
+    the rotary cos and sin of `positions`, shared by the layers of one
+    forward."""
     B, S, _ = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ p["w_q"]
@@ -269,6 +274,17 @@ def _attn(p: Dict, x: torch.Tensor, cfg: LMConfig, *,
         else:
             o = L.flash_attention(q, k, v, causal=True, window=window,
                                   chunked=chunked)
+    elif seq is not None:
+        kc, vc = cache                                 # (B, T_l, KVH, hd)
+        group, lo = seq
+        rel = (cache_pos - lo).reshape(1)
+        own = ((rel >= 0) & (rel < kc.shape[1])).reshape(())
+        slot = rel.clamp(0, kc.shape[1] - 1)
+        for c, new in ((kc, k), (vc, v)):
+            c.index_copy_(1, slot, torch.where(own, new.to(c.dtype),
+                                               c.index_select(1, slot)))
+        o = L.decode_attention_sp(q, kc, vc, cache_pos.expand(B), lo, group,
+                                  window=window, chunked=chunked)
     else:
         kc, vc = cache                                   # (B, T, KVH, hd)
         kc[:, cache_pos:cache_pos + S] = k
@@ -406,16 +422,28 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
 
 @torch.no_grad()
 def lm_decode_step(params: LM, cache: DecodeCache, token,
-                   pos: Union[int, torch.Tensor], cfg: LMConfig):
+                   pos: Union[int, torch.Tensor], cfg: LMConfig, *,
+                   seq_group=None, seq_lo: int = 0):
     """One decode step. token: (B,) int; pos: the append index (an int, or
     a 0-d tensor read once). Returns (logits (B, V) float32, cache): the
-    cache is updated in place and returned."""
+    cache is updated in place and returned.
+
+    `seq_group` ((process group, members), the `model` group of a grid):
+    sequence-parallel decode, the cache this rank's block of the sequence
+    from position `seq_lo`; `pos` is then never read on the host."""
     exact_reductions()
-    pos = int(pos)
     token = _tokens(params, token)
     x = _leaf(params, "embed")[token][:, None, :].to(_dt(cfg))  # (B, 1, D)
     B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    seq = None
+    if seq_group is None:
+        pos = int(pos)
+        positions = torch.full((B, 1), pos, dtype=torch.long,
+                               device=x.device)
+    else:
+        pos = to_tensor(pos, x.device, torch.long).reshape(())
+        positions = pos.expand(B, 1)
+        seq = (seq_group[0], int(seq_lo))
     angles = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     for li, lp in enumerate(params.layers.per_layer()):
         if params.gather is not None:
@@ -423,7 +451,7 @@ def lm_decode_step(params: LM, cache: DecodeCache, token,
         h = _attn(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
                   positions=positions, li=li,
                   cache=(cache.k[li], cache.v[li]), cache_pos=pos,
-                  angles=angles)
+                  angles=angles, seq=seq)
         x = x + h
         f, _ = _ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
         x = x + f

@@ -78,6 +78,9 @@ DIST_MODULES = ("launch.mesh", "distributed.sharding",
                 "distributed.act_sharding", "distributed.compression",
                 "distributed.pipeline")
 
+#: the modules of the dry-run cells
+CELL_MODULES = ("launch.inputs", "launch.dryrun")
+
 _BLOCKER = """
 import importlib, json, sys
 class _Blocked:
@@ -103,7 +106,8 @@ def blocked_imports():
     storage module in turn: module -> 'ok' or the error."""
     code = _BLOCKER.format(forbidden=set(FORBIDDEN),
                            modules=STORAGE_MODULES + TRAIN_MODULES
-                           + LM_MODULES + GNN_MODULES + DIST_MODULES)
+                           + LM_MODULES + GNN_MODULES + DIST_MODULES
+                           + CELL_MODULES)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -139,6 +143,23 @@ def test_gnn_modules_import_with_jax_and_repro_blocked(blocked_imports,
 def test_dist_modules_import_with_jax_and_repro_blocked(blocked_imports,
                                                         module):
     assert blocked_imports[module] == "ok"
+
+
+@pytest.mark.parametrize("module", CELL_MODULES)
+def test_cell_modules_import_with_jax_and_repro_blocked(blocked_imports,
+                                                        module):
+    assert blocked_imports[module] == "ok"
+
+
+def test_the_dry_run_needs_no_card():
+    """Cells build and their blocks cut on the meta device: no card, no
+    world (a grid of one described rank)."""
+    from repro_torch.launch import inputs as I
+    from repro_torch.launch.mesh import ProcessGrid
+    grid = ProcessGrid((16, 16), ("data", "model"), rank=5)
+    cell = I.build_cell("dcn-v2", "serve_p99", grid)
+    for t in I._leaves(I.local_args(cell, grid)):
+        assert t[1].device.type == "meta"
 
 
 def test_grid_entry_points_need_a_card_or_device_cpu(tmp_path):
