@@ -207,12 +207,17 @@ non-zero):
  24. `[gnn_parity]`: the segment-sum kernel (`csrc/gnn_kernels.cu`, the
      GNN family's aggregation) against its plain version in float64 on
      the card, within the running-error bound of float32 sums in the
-     kernel's order, forward (by destination) and backward (by source) at
-     F = 7, 24, 100, 128, 602 and 1,433, with empty rows, duplicate
-     edges, self-loops and (n, n) dummies, and at F = 7 and 128 two
+     order the CSR's plan fixes (`seg_plan`, `seg_bound`), forward (by
+     destination) and backward (by source) at F = 7, 13, 24, 30, 64, 100,
+     128, 602 and 1,433 (every lane layout), with empty rows, duplicate
+     edges, self-loops and (n, n) dummies, and at F = 7, 100 and 128 two
      destinations and two sources of 2.1M and 12,411 edges (hub rows cut
-     into chunks, two a way); every call twice, bit-equal; the kernel's registers,
-     spills and resident CTAs; then reduced graphsage-reddit (d_hidden
+     into chunks, two a way; the two hub sources staged as hot); every
+     call twice, bit-equal; bit-equal to a plain float32 sum in the plan's
+     order on every hub row, the 64 longest and 4,096 random other rows
+     (`seg_exact`); an unaligned copy of x (4-byte loads) bit-equal; the
+     plan, registers, spills, shared memory and resident CTAs of each
+     width; then reduced graphsage-reddit (d_hidden
      64) card vs CPU in float32: full-graph logits (mean, sum, max),
      loss and gradients, minibatch and batched losses and gradients,
      within TOL_GNN_PARITY;
@@ -228,10 +233,13 @@ non-zero):
      on blocks gathered on the card; molecule's batched forward of 128
      graphs; then the kernel at ogb_products' hidden width (F = 128),
      the main path's shape: against its plain version in float64 over
-     both CSRs (the backward's zipf hub rows included), 8 columns at a
-     time, bit-equal across two calls; forward and backward ms, the
-     plain version's, `torch.sparse.mm`'s (the library call) and
-     `index_add_`'s on gathered messages;
+     both CSRs (the backward's zipf hub rows included, in destination
+     bands), 8 columns at a time, bit-equal across two calls and to the
+     float32 sum in the plan's order (`seg_exact`); the forward's staged
+     hot sources, shared memory and the backward's bands (required: some
+     of each); forward and backward ms, the plain version's,
+     `torch.sparse.mm`'s (the library call) each way and `index_add_`'s
+     on gathered messages, and both bounds;
  26. `[gnn_train]`: tiny full_graph_sm card vs CPU after each of 3 steps
      (TOL_GNN_TRAIN), 30 steps at lr 1e-2 (last < 0.8x first, each loss
      within TOL_GNN_LOSS of the CPU's), a restart bit-equal; ogb_products
@@ -1525,7 +1533,7 @@ def phase_dryrun(root: str, card: str) -> None:
         for sec in ("memory", "cost", "collectives"):
             require("error" not in rec[sec],
                     f"{fname}: {sec} {rec[sec]}")
-        coll = rec["collectives"]
+        coll = {k: v for k, v in rec["collectives"].items() if k != "note"}
         log("dryrun", arch=rec["arch"], shape=rec["shape"],
             mesh=compact(rec["mesh"]), n_devices=rec["n_devices"],
             arg_bytes=rec["memory"]["argument_size_in_bytes"],
@@ -4374,10 +4382,16 @@ GNN_REPLACES = ("jax.ops.segment_sum in src/repro/models/gnn.py:58 "
 # bound of float32 sums in the kernel's order (`seg_bound`), times 1 + this
 # (the bound is first order in 2^-24)
 TOL_SEG = 1e-3
-SEG_WIDTHS = (7, 24, 100, 128, 602, 1433)
+# every lane layout of the kernel: 16-byte loads at 8, 16 and 32 lanes a
+# row (24, 64, 100, 128), 4-byte ones at 8, 16 and 32 (7, 13, 30) and four
+# tiles a lane (602, 1433)
+SEG_WIDTHS = (7, 13, 24, 30, 64, 100, 128, 602, 1433)
+SEG_HUB_WIDTHS = (7, 100, 128)    # the hub cases (hot sources staged)
 SEG_HUB_EDGES = 2_100_000         # a hub row's edges (above 2M)
 SEG_HUB2_EDGES = 12_411           # a second hub's: 3 chunks and a short one
 SEG_COLS = 8                      # float64 columns at a time at full width
+SEG_EXACT_LONG = 64               # `seg_exact`: the longest non-hub rows
+SEG_EXACT_RANDOM = 4096           # and random ones, besides every hub row
 TOL_GNN_PARITY = 1e-5             # reduced graphsage-reddit, card vs CPU
 TOL_GNN_TRAIN = 1e-4              # parameters after each of 3 tiny steps
 TOL_GNN_LOSS = 1e-3               # the 30 tiny losses, card vs CPU
@@ -4544,28 +4558,86 @@ def seg_case(F: int, hub: bool, seed: int, n: int = 5000,
 
 
 def seg_plan(csr) -> dict:
-    """The index work of `seg_bound` for one CSR, made once: each entry's
-    row, the first entry of its sum segment (a row's edges, or for a hub
-    row each chunk of CHUNK edges), whether it opens one, and the entries
-    that close a hub row's chunk (in chunk order) with their rows."""
+    """The index work of `seg_bound` for one CSR, read from the plan that
+    the kernel runs (the CSR's own): each entry's row, the first entry of
+    its sum segment (a row's entries, or a hub chunk's, [chunk_beg,
+    chunk_end)), whether it opens one, and the entries that close a hub's
+    chunks in the hub pass's order (slot order: a hub's partials in entry
+    order) with their rows."""
     import torch
-    from repro_torch.kernels import segment
     rows = csr.rows()
-    counts = (csr.indptr[1:] - csr.indptr[:-1])[rows]
     pos = torch.arange(rows.shape[0], device=rows.device)
-    start = csr.indptr[rows]
-    seg = torch.where(counts > segment.CHUNK,
-                      start + (pos - start) // segment.CHUNK * segment.CHUNK,
-                      start)
-    del start
-    last = torch.cat([seg[1:] != seg[:-1], torch.ones_like(pos[:1],
-                                                           dtype=torch.bool)])
-    ends = torch.nonzero(last & (counts > segment.CHUNK)).flatten()
-    hub_rows = rows[ends]
+    counts = csr.indptr[1:] - csr.indptr[:-1]
+    opens = torch.zeros_like(pos, dtype=torch.bool)
+    opens[csr.indptr[:-1][counts > 0]] = True
+    opens[csr.chunk_beg] = True
+    seg = torch.cummax(torch.where(opens, pos, 0), 0).values
+    by_slot = torch.argsort(csr.chunk_slot)
+    ends = csr.chunk_end[by_slot] - 1
+    hub_rows = csr.chunk_row[by_slot].long()
     hub_open = torch.cat([torch.ones_like(hub_rows[:1], dtype=torch.bool),
                           hub_rows[1:] != hub_rows[:-1]])
-    return dict(rows=rows, seg=seg, opens=pos == seg, ends=ends,
+    return dict(rows=rows, seg=seg, opens=opens, ends=ends,
                 hub_rows=hub_rows, hub_open=hub_open)
+
+
+def ordered_sums(x, col, begs, ends):
+    """(len(begs), F) float32: each [beg, end) of `col` summed from 0 in
+    entry order, one add of x's row a position (a plain float32 loop over
+    positions, one (items, F) tensor at a time)."""
+    import torch
+    lens = ends - begs
+    acc = torch.zeros((begs.shape[0], x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    last = max(col.shape[0] - 1, 0)
+    for j in range(int(lens.max()) if lens.numel() else 0):
+        v = x[col[(begs + j).clamp(max=last)].long()]
+        acc = torch.where((j < lens)[:, None], acc + v, acc)
+    return acc
+
+
+def seg_exact(x, csr, got, seed: int = 0) -> dict:
+    """The kernel's output `got` (csr_sum(x, csr)) bit for bit against a
+    plain float32 sum in the plan's order on sampled rows: every hub row
+    (each chunk from 0 in entry order, then its partials in slot order),
+    the SEG_EXACT_LONG longest other rows and SEG_EXACT_RANDOM random
+    ones. Raises on the first difference; the rows checked."""
+    import torch
+    from repro_torch.kernels import segment
+    counts = csr.indptr[1:] - csr.indptr[:-1]
+    small = torch.nonzero(counts <= segment.CHUNK).flatten()
+    longest = small[torch.argsort(counts[small], descending=True,
+                                  stable=True)[:SEG_EXACT_LONG]]
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    pick = torch.randperm(small.shape[0], generator=g, device=x.device)
+    rows = torch.unique(torch.cat([longest,
+                                   small[pick[:SEG_EXACT_RANDOM]]]))
+    want = ordered_sums(x, csr.col, csr.indptr[rows], csr.indptr[rows + 1])
+    bad = (want.view(torch.int32) != got[rows].view(torch.int32)).any(1)
+    if bool(bad.any()):
+        raise AssertionError(f"seg_exact: row {int(rows[bad][0])} differs "
+                             "from the float32 sum in the CSR's order")
+    n_hubs = csr.hub_rows.shape[0]
+    if n_hubs:
+        by_slot = torch.argsort(csr.chunk_slot)
+        part = ordered_sums(x, csr.col, csr.chunk_beg[by_slot],
+                            csr.chunk_end[by_slot])
+        first = csr.hub_first.long()
+        acc = torch.zeros((n_hubs, x.shape[1]), dtype=torch.float32,
+                          device=x.device)
+        for k in range(int((first[1:] - first[:-1]).max())):
+            idx = first[:-1] + k
+            acc = torch.where((idx < first[1:])[:, None],
+                              acc + part[idx.clamp(max=part.shape[0] - 1)],
+                              acc)
+        hub = csr.hub_rows.long()
+        bad = (acc.view(torch.int32) != got[hub].view(torch.int32)).any(1)
+        if bool(bad.any()):
+            raise AssertionError(f"seg_exact: hub row {int(hub[bad][0])} "
+                                 "differs from the float32 sum in the CSR's "
+                                 "order")
+    return dict(rows=int(rows.shape[0]), hub_rows=n_hubs,
+                chunks=csr.n_chunks)
 
 
 def seg_bound(x, csr, plan: dict):
@@ -4605,14 +4677,15 @@ def seg_bound(x, csr, plan: dict):
     return bound.t() * 2.0 ** -24
 
 
-def seg_check(x, csr, what: str, cols: int = 0) -> float:
-    """The kernel twice on (x, csr), bit-equal, against its plain version
-    (`ref.segment_sum_ref`) on the same inputs in float64: within the
-    running-error bound of float32 sums in the kernel's order
+def seg_check(x, csr, what: str, cols: int = 0):
+    """The kernel twice on (x, csr), bit-equal; bit-equal to the float32
+    sum in the plan's order on sampled rows (`seg_exact`); against its
+    plain version (`ref.segment_sum_ref`) on the same inputs in float64:
+    within the running-error bound of float32 sums in the kernel's order
     (`seg_bound`, TOL_SEG slack). With `cols`, the kernel runs at x's
     whole width and the float64 side takes `cols` columns at a time (the
-    published graphs' (E, F) float64 gather does not fit at once). The
-    max abs error."""
+    published graphs' (E, F) float64 gather does not fit at once). (The
+    max abs error, `seg_exact`'s counts.)"""
     import torch
     from repro_torch.kernels.ref import segment_sum_ref
     from repro_torch.kernels.segment import csr_sum
@@ -4620,6 +4693,7 @@ def seg_check(x, csr, what: str, cols: int = 0) -> float:
     torch.cuda.synchronize()
     require(torch.equal(a, b), f"segment_sum {what}: two calls differ")
     del b
+    exact = seg_exact(x, csr, a)
     plan = seg_plan(csr)
     F = x.shape[1]
     worst = 0.0
@@ -4639,7 +4713,7 @@ def seg_check(x, csr, what: str, cols: int = 0) -> float:
                 f", bound {float(lim[r, c])}")
         worst = max(worst, float(err.max()))
         del want, lim, err
-    return worst
+    return worst, exact
 
 
 def segment_parity() -> float:
@@ -4653,17 +4727,29 @@ def segment_parity() -> float:
         segment_sum
     worst = 0.0
     for i, F in enumerate(SEG_WIDTHS):
-        for hub in ((False, True) if F in (7, 128) else (False,)):
+        for hub in ((False, True) if F in SEG_HUB_WIDTHS else (False,)):
             x, csr, n_edges = seg_case(F, hub, seed=i)
             t0 = time.perf_counter()
-            fwd = seg_check(x, csr.by_dst, f"F={F} forward")
+            fwd, fwd_exact = seg_check(x, csr.by_dst, f"F={F} forward")
             g = torch.randn(x.shape, device=x.device, generator=torch.
                             Generator(x.device).manual_seed(i))
-            bwd = seg_check(g, csr.by_src, f"F={F} backward")
+            bwd, bwd_exact = seg_check(g, csr.by_src, f"F={F} backward")
+            if F % 4 == 0:
+                # x 4 bytes off 16-byte alignment: 4-byte loads, the same
+                # order, so the same bits
+                buf = torch.empty(x.numel() + 1, device=x.device)
+                xm = buf[1:].view(x.shape)
+                xm.copy_(x)
+                require(torch.equal(csr_sum(xm, csr.by_dst),
+                                    csr_sum(x, csr.by_dst)),
+                        f"segment_sum F={F}: unaligned x differs")
+                del buf, xm
             if hub:
                 require(csr.by_dst.hub_rows.shape[0] >= 2
-                        and csr.by_src.hub_rows.shape[0] >= 2,
-                        "the hub case has fewer than two hub rows a way")
+                        and csr.by_src.hub_rows.shape[0] >= 2
+                        and csr.by_dst.n_hot > 0,
+                        "the hub case has fewer than two hub rows a way "
+                        "or no hot source")
                 xr = x.clone().requires_grad_()
                 segment_sum(xr, csr).backward(g)
                 require(torch.equal(xr.grad, csr_sum(g, csr.by_src)),
@@ -4677,10 +4763,13 @@ def segment_parity() -> float:
                                             csr.by_src.n_chunks]),
                 max_abs_err_fwd=f"{fwd:.3e}", max_abs_err_bwd=f"{bwd:.3e}",
                 bit_equal=True, tol=TOL_SEG,
+                exact_rows_fwd_bwd=compact([fwd_exact["rows"],
+                                            bwd_exact["rows"]]),
+                n_hot=csr.by_dst.n_hot, plan=compact(segment_occupancy(
+                    F, csr.by_dst.n_hot)),
                 s=f"{time.perf_counter() - t0:.2f}")
             del x, csr, g
-    log("gnn_parity", kernel="segment_sum", build_s=_build.build_seconds,
-        **segment_occupancy())
+    log("gnn_parity", kernel="segment_sum", build_s=_build.build_seconds)
     return worst
 
 
@@ -4881,7 +4970,7 @@ def segment_times(graph: dict, p) -> dict:
     gathered beforehand; bytes and operations of the bound."""
     import torch
     from repro_torch.kernels.ref import segment_sum_ref
-    from repro_torch.kernels.segment import csr_sum
+    from repro_torch.kernels.segment import csr_sum, segment_occupancy
     csr = graph["csr"]
     with torch.no_grad():
         l0 = p.layers[0]
@@ -4891,37 +4980,49 @@ def segment_times(graph: dict, p) -> dict:
                        + agg @ l0["w_neigh"] + l0["b"])
         del agg
         t0 = time.perf_counter()
-        errs = [seg_check(h, c, f"ogb_products F=128 {what}", SEG_COLS)
-                for what, c in (("forward", csr.by_dst),
-                                ("backward", csr.by_src))]
+        checks = [seg_check(h, c, f"ogb_products F=128 {what}", SEG_COLS)
+                  for what, c in (("forward", csr.by_dst),
+                                  ("backward", csr.by_src))]
         check_s = time.perf_counter() - t0
-        d = csr.by_dst
+        d, b = csr.by_dst, csr.by_src
         ms = cuda_ms(lambda: csr_sum(h, d), reps=10)
-        bwd_ms = cuda_ms(lambda: csr_sum(h, csr.by_src), reps=10)
+        bwd_ms = cuda_ms(lambda: csr_sum(h, b), reps=10)
         rows = d.rows()
         plain_ms = cuda_ms(lambda: segment_sum_ref(h, d.col, rows, d.n_rows),
                            reps=2)
-        adj = torch.sparse_csr_tensor(
-            d.indptr.to(torch.int32), d.col,
-            torch.ones(d.col.shape[0], dtype=torch.float32, device=h.device),
-            (d.n_rows, d.n_cols))
-        sp = torch.sparse.mm(adj, h)
-        sp_err = float((sp - csr_sum(h, d)).abs().max())
-        del sp
-        library_ms = cuda_ms(lambda: torch.sparse.mm(adj, h), reps=10)
-        del adj
+        lib = {}
+        for name, c in (("fwd", d), ("bwd", b)):
+            adj = torch.sparse_csr_tensor(
+                c.indptr.to(torch.int32), c.col,
+                torch.ones(c.col.shape[0], dtype=torch.float32,
+                           device=h.device), (c.n_rows, c.n_cols))
+            sp = torch.sparse.mm(adj, h)
+            lib[f"{name}_diff"] = float((sp - csr_sum(h, c)).abs().max())
+            del sp
+            lib[name] = cuda_ms(lambda: torch.sparse.mm(adj, h), reps=10)
+            del adj
         msg = h[d.col.long()]
         out = torch.zeros_like(h)
         index_add_ms = cuda_ms(lambda: out.index_add_(0, rows, msg), reps=2)
         del msg, out, rows
+        bands = (torch.unique(b.col[b.chunk_beg].long() // b.band_rows)
+                 .shape[0] if b.band_rows and b.n_chunks else 0)
     N, F = h.shape
-    E = d.col.shape[0]
+    E, E_bwd = d.col.shape[0], b.col.shape[0]
     nbytes = 2 * N * F * 4 + (N + 1) * 8 + E * 4
+    bwd_nbytes = 2 * N * F * 4 + (N + 1) * 8 + E_bwd * 4
+    bwd_bound_ms, bwd_by = bound_ms(bwd_nbytes, E_bwd * F)
     return dict(ms=ms, bwd_ms=bwd_ms, plain_ms=plain_ms,
-                library_ms=library_ms, index_add_ms=index_add_ms,
-                sparse_mm_max_diff=sp_err, max_abs_err=max(errs),
-                errs=errs, check_s=check_s, nbytes=nbytes, ops=E * F,
-                shape=f"N={N},E={E},F={F}")
+                library_ms=lib["fwd"], bwd_library_ms=lib["bwd"],
+                index_add_ms=index_add_ms,
+                sparse_mm_max_diff=[lib["fwd_diff"], lib["bwd_diff"]],
+                max_abs_err=max(e for e, _ in checks),
+                errs=[e for e, _ in checks], exact=[x for _, x in checks],
+                check_s=check_s, nbytes=nbytes, ops=E * F,
+                bwd_nbytes=bwd_nbytes, bwd_bound_ms=bwd_bound_ms,
+                bwd_bound_by=bwd_by, bands=bands, n_hot=d.n_hot,
+                occupancy=segment_occupancy(F, d.n_hot),
+                shape=f"N={N},E={E},E_bwd={E_bwd},F={F}")
 
 
 def serve_minibatch(draws: GnnDraws, card: str) -> dict:
@@ -5023,15 +5124,29 @@ def phase_gnn_serve(draws: GnnDraws, card: str):
     log("gnn_serve", kernel="segment_sum", at=times["shape"],
         hub_rows_fwd_bwd=compact([ogb["csr"].by_dst.hub_rows.shape[0],
                                   ogb["csr"].by_src.hub_rows.shape[0]]),
+        hub_chunks_fwd_bwd=compact([ogb["csr"].by_dst.n_chunks,
+                                    ogb["csr"].by_src.n_chunks]),
+        bwd_bands=times["bands"], band_rows=ogb["csr"].by_src.band_rows,
+        n_hot=times["n_hot"], plan=compact(times["occupancy"]),
         max_abs_err_fwd_bwd=compact([f"{e:.3e}" for e in times["errs"]]),
+        exact_fwd_bwd=compact(times["exact"]),
         bit_equal=True, tol=TOL_SEG, check_s=f"{times['check_s']:.2f}",
         ms=f"{times['ms']:.4f}", bwd_ms=f"{times['bwd_ms']:.4f}",
         plain_ms=f"{times['plain_ms']:.4f}",
         library_sparse_mm_ms=f"{times['library_ms']:.4f}",
-        sparse_mm_max_diff=f"{times['sparse_mm_max_diff']:.3e}",
+        bwd_library_sparse_mm_ms=f"{times['bwd_library_ms']:.4f}",
+        sparse_mm_max_diff_fwd_bwd=compact(
+            [f"{d:.3e}" for d in times["sparse_mm_max_diff"]]),
         index_add_ms=f"{times['index_add_ms']:.4f}",
-        bound_ms=f"{b_ms:.4f}", bound_by=by, launches=launches["segment_sum"],
-        card=json.dumps(card))
+        bound_ms=f"{b_ms:.4f}", bound_by=by,
+        bwd_nbytes=times["bwd_nbytes"],
+        bwd_bound_ms=f"{times['bwd_bound_ms']:.4f}",
+        bwd_bound_by=times["bwd_bound_by"],
+        launches=launches["segment_sum"], card=json.dumps(card))
+    require(times["n_hot"] > 0 and times["occupancy"]["staged_rows"] > 0
+            and times["occupancy"]["dynamic_smem"] > 0 and times["bands"] > 1,
+            "ogb_products: the forward stages no hot source or the "
+            "backward has no bands")
     fresh_peak()
     return launches, times, ogb, mb
 
@@ -6119,7 +6234,9 @@ def run_phases(root: str) -> int:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b, "bound_by": by,
             "library_ms": t["library_ms"],
-            **({"index_add_ms": t["index_add_ms"]} if gnn else {})})
+            **({"index_add_ms": t["index_add_ms"], "bwd_ms": t["bwd_ms"],
+                "bwd_library_ms": t["bwd_library_ms"],
+                "bwd_bound_ms": t["bwd_bound_ms"]} if gnn else {})})
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

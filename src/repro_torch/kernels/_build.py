@@ -54,9 +54,9 @@ _SIGNATURES = {
                      _I, _I, _I, _P, _P],
     "aisaq_adc_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P],
-    "gnn_segment_sum": [_P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _P,
-                        _P, _P],
-    "gnn_segment_occupancy": [_P],
+    "gnn_segment_sum": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _I,
+                        _P, _P, _I, _P, _P, _P, _P],
+    "gnn_segment_occupancy": [_I, _I, _P],
 }
 
 KERNELS = ("fused_hop_f32", "fused_hop_int8", "pq_lut", "rerank", "pq_adc",

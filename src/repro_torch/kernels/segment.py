@@ -10,7 +10,8 @@ edges' device:
   edges into r, in the edge list's order (a stable sort), which is the
   order the reference's scatter adds them in;
 - by source, for the backward: row s holds the destinations of the edges
-  out of s.
+  out of s, in the edge list's order, except in a hub row (below), whose
+  entries are sorted stably by destination.
 
 Edges whose destination is out of range are dropped, as
 `jax.ops.segment_sum` drops them (`gnn.pad_edges`' (n, n) dummies).
@@ -21,6 +22,28 @@ are left out of the backward, as the gather's transpose drops them. With
 contributes nothing either way and a negative one reads row 0, as the
 reference's clip-and-mask does. `deg` counts the edges of a row whose destination is
 valid, whatever their source, as both reference paths count it.
+
+The order of every float32 sum is fixed by the CSR alone (`CSR`'s plan):
+
+- a row of at most CHUNK entries is summed in its entries' order;
+- a hub row (more than CHUNK entries) is cut into chunks, each summed in
+  order into a partial; then the row's partials are added in entry order
+  (`chunk_slot`: a hub's slots are consecutive, in entry order).
+  By destination the chunks are every CHUNK entries of the row. By source
+  the hub row is sorted by destination and cut where the destination
+  band (BAND_ROWS rows of the cotangent) changes and every CHUNK entries
+  within a band, and the chunk table runs band-major, so that the chunks
+  of all hubs reading one band run together and share its rows in L2.
+
+The forward stages its hottest sources in shared memory: `hot_ids` are
+the sources that the most entries read (ties to the lower id; at most
+HOT_MAX, each read by at least HOT_MIN_EDGES entries, together at least
+HOT_MIN_SHARE of the entries, else none: molecule's batched graphs stage
+nothing; nor does a graph of more than 2^HOT_ID_BITS sources), and
+`hot_col` is `col` with a hot source's entries coded -2^31 + rank *
+2^HOT_ID_BITS + id (nnz * 4 bytes more, and only where there are hot
+sources; `col` keeps the true ids). The kernel stages as many of them as
+fit its stage of shared memory at the call's width and decodes the rest.
 
 `segment_sum(x, csr)` is a `torch.autograd.Function`: the forward runs the
 kernel over the destination CSR, the backward (the gradient of `x`) runs
@@ -39,16 +62,29 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device, to_tensor
 from repro_torch.kernels import _build, ref
 
-# edges a warp sums before a row counts as a hub (split into chunks summed
-# in parallel, then added in chunk order)
+# entries a warp sums before a row counts as a hub (split into chunks
+# summed in parallel, then added in order)
 CHUNK = 4096
+# the backward's destination bands: 24 MiB of the cotangent at the hidden
+# width (128 float32 columns), about half the H100's 50 MB L2
+BAND_ROWS = (24 << 20) // (128 * 4)
+# the forward's hot sources (see the module docstring); a hot entry of
+# `hot_col` is -2^31 + rank * 2^HOT_ID_BITS + id, so ids below
+# 2^HOT_ID_BITS and ranks below HOT_MAX
+HOT_MAX = 512
+HOT_MIN_EDGES = 1024
+HOT_MIN_SHARE = 0.25
+HOT_ID_BITS = 22
 
 
 class CSR(NamedTuple):
     """One direction of a graph: row r reads rows col[indptr[r]:indptr[r+1]]
-    of an (n_cols, F) input. The hub plan: rows of more than CHUNK edges
-    (`hub_rows`), their chunks (`chunk_row`, `chunk_beg`), and each hub's
-    first chunk (`hub_first`, n_hubs + 1 offsets)."""
+    of an (n_cols, F) input. The hub plan: rows of more than CHUNK entries
+    (`hub_rows`), their chunks in the order the kernel runs them
+    (`chunk_row`, entries [`chunk_beg`, `chunk_end`), the partial's slot
+    `chunk_slot`), and each hub's first slot (`hub_first`, n_hubs + 1
+    offsets). `band_rows` is the destination band of a banded CSR (0:
+    none); `hot_ids` and `hot_col` the staged sources of the forward."""
 
     indptr: torch.Tensor       # (n_rows + 1,) int64
     col: torch.Tensor          # (nnz,) int32
@@ -57,6 +93,11 @@ class CSR(NamedTuple):
     hub_first: torch.Tensor    # (n_hubs + 1,) int32
     chunk_row: torch.Tensor    # (n_chunks,) int32
     chunk_beg: torch.Tensor    # (n_chunks,) int64
+    chunk_end: torch.Tensor    # (n_chunks,) int64
+    chunk_slot: torch.Tensor   # (n_chunks,) int32
+    band_rows: int
+    hot_ids: torch.Tensor      # (n_hot,) int32
+    hot_col: torch.Tensor      # (nnz,) int32 (`col` itself when n_hot = 0)
 
     @property
     def n_rows(self) -> int:
@@ -65,6 +106,10 @@ class CSR(NamedTuple):
     @property
     def n_chunks(self) -> int:
         return self.chunk_row.shape[0]
+
+    @property
+    def n_hot(self) -> int:
+        return self.hot_ids.shape[0]
 
     def rows(self) -> torch.Tensor:
         """(nnz,) int64: the row of each entry of `col`."""
@@ -90,28 +135,77 @@ class GraphCSR(NamedTuple):
         return self.by_dst.col.shape[0]
 
 
-def _csr(rows: torch.Tensor, cols: torch.Tensor, n_rows: int,
-         n_cols: int) -> CSR:
-    order = torch.sort(rows, stable=True).indices
-    counts = torch.bincount(rows, minlength=n_rows)
-    indptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=rows.device)
+def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.zeros(n, dtype=torch.int64, device=idx.device).index_add_(
+        0, idx, torch.ones_like(idx))
+
+
+def _csr(rows: torch.Tensor, cols: torch.Tensor, n_rows: int, n_cols: int,
+         *, band_rows: int = 0, hot: bool = False) -> CSR:
+    """The CSR of entries (rows, cols) with its hub plan; `band_rows` > 0
+    sorts hub rows by column and bands their chunks, `hot` picks the
+    forward's hot sources. Host syncs: one read of the plan's sizes and
+    two `nonzero`s."""
+    dev, nnz = rows.device, rows.shape[0]
+    counts = _counts(rows, n_rows)
+    hub = counts > CHUNK
+    key = rows
+    if band_rows:
+        key = rows * max(n_cols, 1) + torch.where(hub[rows], cols, 0)
+    order = torch.sort(key, stable=True).indices
+    del key
+    col = cols[order]
+    r = rows[order]
+    del order
+    indptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=dev)
     torch.cumsum(counts, 0, out=indptr[1:])
-    hubs = torch.nonzero(counts > CHUNK).flatten()
-    n_ch = (counts[hubs] + CHUNK - 1) // CHUNK
-    hub_first = torch.zeros(hubs.shape[0] + 1, dtype=torch.int64,
-                            device=rows.device)
-    torch.cumsum(n_ch, 0, out=hub_first[1:])
-    total = int(hub_first[-1])
-    chunk_hub = torch.repeat_interleave(
-        torch.arange(hubs.shape[0], device=rows.device), n_ch,
-        output_size=total)
-    k = torch.arange(total, device=rows.device) - hub_first[chunk_hub]
-    chunk_row = hubs[chunk_hub]
-    return CSR(indptr=indptr, col=cols[order].to(torch.int32),
-               n_cols=n_cols, hub_rows=hubs.to(torch.int32),
-               hub_first=hub_first.to(torch.int32),
-               chunk_row=chunk_row.to(torch.int32),
-               chunk_beg=indptr[chunk_row] + k * CHUNK)
+    # a hub row's chunks: a new one where its band changes, and every
+    # CHUNK entries within a band
+    pos = torch.arange(nnz, device=dev)
+    band = col // band_rows if band_rows else torch.zeros_like(col)
+    grp = (pos == indptr[r]) | torch.cat([band[:1] < 0,
+                                          band[1:] != band[:-1]])
+    grp = torch.cummax(torch.where(grp, pos, 0), 0).values
+    opens = hub[r] & ((pos - grp) % CHUNK == 0)
+    del grp
+    n_hot_d = torch.zeros((), dtype=torch.int64, device=dev)
+    if hot and n_cols <= 1 << HOT_ID_BITS:
+        cnt, ids = torch.sort(_counts(cols, n_cols), descending=True,
+                              stable=True)
+        cnt, ids = cnt[:HOT_MAX], ids[:HOT_MAX]
+        take = cnt >= HOT_MIN_EDGES
+        n_hot_d = torch.where((cnt * take).sum() >= HOT_MIN_SHARE * nnz,
+                              take.sum(), 0)
+    n_chunks, n_hot = torch.stack([opens.sum(), n_hot_d]).tolist()
+    hubs = torch.nonzero(hub).flatten()
+    cpos = torch.nonzero(opens).flatten()       # slot order: hub, entry
+    del opens, pos
+    crow = r[cpos]
+    same = crow[1:] == crow[:-1]
+    cend = torch.cat([torch.where(same, cpos[1:], indptr[crow[:-1] + 1]),
+                      indptr[crow[-1:] + 1]])
+    hub_first = torch.full((hubs.shape[0] + 1,), n_chunks, dtype=torch.int32,
+                           device=dev)
+    hub_first[:-1] = torch.searchsorted(crow, hubs).to(torch.int32)
+    # the chunk table runs band-major (a stable sort: by hub and entry
+    # within a band)
+    perm = torch.sort(band[cpos], stable=True).indices
+    col = col.to(torch.int32)
+    hot_ids = ids[:n_hot].to(torch.int32) if n_hot else \
+        torch.zeros(0, dtype=torch.int32, device=dev)
+    hot_col = col
+    if n_hot:
+        slot = torch.full((n_cols,), -1, dtype=torch.int32, device=dev)
+        slot[hot_ids.long()] = torch.arange(n_hot, dtype=torch.int32,
+                                            device=dev)
+        s = slot[col.long()].long()
+        hot_col = torch.where(s >= 0, (s << HOT_ID_BITS) + col - 2 ** 31,
+                              col).to(torch.int32)
+    return CSR(indptr=indptr, col=col, n_cols=n_cols,
+               hub_rows=hubs.to(torch.int32), hub_first=hub_first,
+               chunk_row=crow[perm].to(torch.int32), chunk_beg=cpos[perm],
+               chunk_end=cend[perm], chunk_slot=perm.to(torch.int32),
+               band_rows=band_rows, hot_ids=hot_ids, hot_col=hot_col)
 
 
 def prepare_csr(edges, n_rows: int, *, n_src: Optional[int] = None,
@@ -145,22 +239,26 @@ def prepare_csr(edges, n_rows: int, *, n_src: Optional[int] = None,
         bwd = ok & (src >= 0) & (src < n_src)
         if grad_mask is not None:
             bwd &= to_tensor(grad_mask, dev, torch.bool)
-    return GraphCSR(by_dst=_csr(dst[ok], fwd_src[ok], n_rows, n_src),
-                    by_src=_csr(src[bwd], dst[bwd], n_src, n_rows),
+    return GraphCSR(by_dst=_csr(dst[ok], fwd_src[ok], n_rows, n_src,
+                                hot=True),
+                    by_src=_csr(src[bwd], dst[bwd], n_src, n_rows,
+                                band_rows=BAND_ROWS),
                     deg=deg)
 
 
 def _meta_graph(n_edges: int, n_rows: int, n_src: int) -> GraphCSR:
     """A graph's CSRs as meta tensors for a meta trace (`launch.dryrun`),
     which cannot size what the edges hold: every edge counts as valid, no
-    row as a hub."""
+    row as a hub, no source as hot, no band."""
     def csr(rows: int, cols: int) -> CSR:
         def z(n, dt):
             return torch.empty((n,), dtype=dt, device="meta")
-        return CSR(indptr=z(rows + 1, torch.int64),
-                   col=z(n_edges, torch.int32), n_cols=cols,
+        col = z(n_edges, torch.int32)
+        return CSR(indptr=z(rows + 1, torch.int64), col=col, n_cols=cols,
                    hub_rows=z(0, torch.int32), hub_first=z(1, torch.int32),
-                   chunk_row=z(0, torch.int32), chunk_beg=z(0, torch.int64))
+                   chunk_row=z(0, torch.int32), chunk_beg=z(0, torch.int64),
+                   chunk_end=z(0, torch.int64), chunk_slot=z(0, torch.int32),
+                   band_rows=0, hot_ids=z(0, torch.int32), hot_col=col)
     return GraphCSR(by_dst=csr(n_rows, n_src), by_src=csr(n_src, n_rows),
                     deg=torch.empty((n_rows,), device="meta"))
 
@@ -184,12 +282,18 @@ def csr_sum(x: torch.Tensor, csr: CSR) -> torch.Tensor:
         return out
     partial = torch.empty((csr.n_chunks, F), dtype=torch.float32,
                           device=x.device)
+    # the chunk pass's work counter (set to 0 by the launcher)
+    counter = torch.empty((1 if csr.n_chunks else 0,), dtype=torch.int32,
+                          device=x.device)
     err = _build.lib().gnn_segment_sum(
         x.data_ptr(), F, csr.indptr.data_ptr(), csr.col.data_ptr(),
-        csr.n_rows, CHUNK, csr.chunk_row.data_ptr(),
-        csr.chunk_beg.data_ptr(), csr.n_chunks, csr.hub_rows.data_ptr(),
+        csr.hot_col.data_ptr(), csr.n_rows, CHUNK, csr.hot_ids.data_ptr(),
+        csr.n_hot,
+        csr.chunk_beg.data_ptr(), csr.chunk_end.data_ptr(),
+        csr.chunk_slot.data_ptr(), csr.n_chunks, csr.hub_rows.data_ptr(),
         csr.hub_first.data_ptr(), csr.hub_rows.shape[0],
-        partial.data_ptr(), out.data_ptr(), _build.stream())
+        partial.data_ptr(), counter.data_ptr(), out.data_ptr(),
+        _build.stream())
     _build.check(err, "segment_sum")
     _build.count_launch("segment_sum")
     return out
@@ -214,13 +318,21 @@ def segment_sum(x: torch.Tensor, csr: GraphCSR) -> torch.Tensor:
     return _SegmentSum.apply(x.contiguous(), csr)
 
 
-def segment_occupancy() -> dict:
-    """Registers, spill bytes and resident CTAs an SM of the rows kernel,
-    for F <= 32 (`v1_*`) and wider rows (`v4_*`). Needs the card."""
-    out = (ctypes.c_int * 6)()
-    _build.check(_build.lib().gnn_segment_occupancy(out),
-                 "segment_occupancy")
-    keys = [f"{v}_{k}" for v in ("v1", "v4")
-            for k in ("registers", "local_bytes", "ctas_per_sm")]
-    return dict(zip(keys, list(out)))
+OCCUPANCY_KEYS = ("lanes_per_row", "vector", "staged_rows",
+                  "dynamic_smem", "rows_registers", "rows_local_bytes",
+                  "rows_ctas_per_sm", "chunks_registers",
+                  "chunks_local_bytes", "chunks_ctas_per_sm",
+                  "hubs_registers", "sms")
 
+
+def segment_occupancy(F: int, n_hot: int = 0) -> dict:
+    """The plan and resources of the kernels that a call at width F with
+    `n_hot` hot sources runs on a 16-byte aligned x: lanes a row, 16-byte
+    loads or not, the rows each CTA stages and their dynamic shared memory;
+    the rows kernel's (1,024 threads a CTA where rows are staged, else
+    256) and the chunk kernel's (256) registers, spill bytes and resident
+    CTAs an SM; the hub kernel's registers; the SMs. Needs the card."""
+    out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
+    _build.check(_build.lib().gnn_segment_occupancy(F, n_hot, out),
+                 "segment_occupancy")
+    return dict(zip(OCCUPANCY_KEYS, list(out)))

@@ -30,8 +30,15 @@ input (`launch.inputs.local_args`). Each cell writes one JSON record:
     op names, bytes the output on this rank a time).
 
 A section that cannot be had is `{"error": ...}` naming the step's
-failure (the op without a meta kernel). An ANN cell's search runs CUDA
-graphs and kernels, which meta tensors cannot run: its record counts the
+failure (the op without a meta kernel). Two sparse ops that the training
+cells reach have no meta kernel in torch: the optimizer's coalesce of the
+tables' sparse gradients and Wide&Deep's densified `wide/*` gradients.
+`install_sparse_meta` registers both for the sparse meta tensors before
+the first trace, in this process alone (no served module registers them):
+a coalesce keeps its input's nnz, an upper bound (on the card it removes
+the duplicate ids), and those cells' `cost` and `collectives` say so in a
+`note`. An ANN cell's search runs CUDA graphs and kernels, which meta
+tensors cannot run: its record counts the
 merge's two all-gathers of (n_shards, B_l, k) from the output shapes
 (`core.sharded_search`) and says so. Skipped cells write a skip record.
 Exits 1 if any cell fails.
@@ -53,6 +60,8 @@ from repro_torch.launch.mesh import fake_world, make_production_grid, \
 
 # the k of the ANN cells' search (`inputs._build_ann_cell`)
 ANN_K = 10
+NNZ_NOTE = ("a sparse gradient's nnz is taken as the rows it read, an upper "
+            "bound: on the card a coalesce removes the duplicate ids")
 PEAK_NOTE = ("no peak: meta tensors have no allocator to read, and "
              "MemTracker over a meta trace gave 485 GB for one qwen3-1.7b "
              "decode_32k step (no rank holds that much), so no figure is "
@@ -92,15 +101,47 @@ def _ann_record(cell, local) -> dict:
             "output_size_in_bytes": b_l * ANN_K * 8}
 
 
+_SPARSE_META = []            # the registration's Library, kept alive
+_coalesced = [0]             # coalesces traced in this process
+
+
+def _coalesce_meta(self):
+    _coalesced[0] += 1
+    nnz = self._nnz()
+    idx = torch.empty((self.sparse_dim(), nnz), dtype=torch.int64,
+                      device="meta")
+    vals = torch.empty((nnz, *self.shape[self.sparse_dim():]),
+                       dtype=self.dtype, device="meta")
+    return torch.sparse_coo_tensor(idx, vals, self.shape, is_coalesced=True)
+
+
+def _to_dense_meta(self, dtype=None, masked_grad=None):
+    return torch.empty(self.shape, dtype=dtype or self.dtype, device="meta")
+
+
+def install_sparse_meta() -> None:
+    """Register `aten::_coalesce` (the output's nnz is the input's, the
+    upper bound) and `aten::_to_dense` for SparseMeta, once a process."""
+    if _SPARSE_META:
+        return
+    lib = torch.library.Library("aten", "IMPL")
+    lib.impl("_coalesce", _coalesce_meta, "SparseMeta")
+    lib.impl("_to_dense", _to_dense_meta, "SparseMeta")
+    _SPARSE_META.append(lib)
+
+
 def trace(fn, args) -> dict:
     """One call of fn(*args) on meta tensors: its flops, collectives and
-    output bytes."""
+    output bytes, and whether it coalesced a sparse tensor."""
     from torch.utils.flop_counter import FlopCounterMode
+    install_sparse_meta()
+    before = _coalesced[0]
     with record_collectives() as coll, \
             FlopCounterMode(display=False) as fc:
         out = fn(*args)
     return {"flops": float(fc.get_total_flops()), "collectives": coll,
-            "output_size_in_bytes": _nbytes(out)}
+            "output_size_in_bytes": _nbytes(out),
+            "sparse": _coalesced[0] > before}
 
 
 def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
@@ -148,11 +189,13 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
                        "flops_x_ranks_over_model":
                            got["flops"] * grid.world / mf if mf else None}
     rec["collectives"] = got["collectives"]
+    if got.get("sparse"):
+        rec["cost"]["note"] = rec["collectives"]["note"] = NNZ_NOTE
     if verbose:
         coll = rec["collectives"]
         ops = coll if "error" in coll else {
             k: (v["count"], round(v["bytes"] / 1e6, 1))
-            for k, v in coll.items()}
+            for k, v in coll.items() if k != "note"}
         print(f"  args {mem['argument_size_in_bytes'] / 1e9:.4f} GB, "
               f"flops {rec['cost'].get('flops')}, collectives "
               f"(count, MB) {ops}", flush=True)

@@ -1,12 +1,15 @@
 """The port's dry run (`repro_torch.launch.dryrun`) and the sharded serve
 steps it traces, on the CPU.
 
-- Four cells at full production widths on the fake 256-rank world (meta
+- Eight cells at full production widths on the fake 256-rank world (meta
   tensors, one subprocess: the fake process group stays out of this
   process): qwen3-1.7b decode_32k, dcn-v2 serve_p99, graphsage-reddit
-  full_graph_sm and aisaq-sift1b serve_q1k. Each record has every section
-  without an error, its argument bytes are the rank's blocks
-  (`inputs.local_bytes`), and its collectives are those of the step.
+  full_graph_sm, aisaq-sift1b serve_q1k and the four recommenders'
+  train_batch. Each record has every section without an error, its
+  argument bytes are the rank's blocks (`inputs.local_bytes`), and its
+  collectives are those of the step. The training cells' sparse
+  gradients trace through the dry run's own sparse meta kernels, which
+  importing the served modules does not register.
 - The collective recorder (`launch.mesh.record_collectives`) on a real
   world of 4 gloo CPU ranks against the same steps of reduced archs on a
   fake 4-rank world with meta tensors (a subprocess): equal counts and
@@ -41,7 +44,9 @@ HERE = os.path.dirname(__file__)
 
 DRY_CELLS = [("qwen3-1.7b", "decode_32k"), ("dcn-v2", "serve_p99"),
              ("graphsage-reddit", "full_graph_sm"),
-             ("aisaq-sift1b", "serve_q1k")]
+             ("aisaq-sift1b", "serve_q1k"), ("dlrm-rm2", "train_batch"),
+             ("sasrec", "train_batch"), ("dcn-v2", "train_batch"),
+             ("wide-deep", "train_batch")]
 
 
 def _env():
@@ -110,7 +115,7 @@ def test_dryrun_record_on_the_fake_256_rank_world(records, arch_id,
         assert coll["all-gather"]["count"] > 7 * cfg.n_layers
         # the 16 ranks of a `model` group compute the same activations
         assert ratio > 8
-    if arch_id == "dcn-v2":
+    if (arch_id, shape_name) == ("dcn-v2", "serve_p99"):
         # the row-sharded tables' bags summed in one all-reduce over
         # `model`: the rank's 32 rows x 26 fields x 16 float32
         sharded = sum(1 for n, sp in cell.place.params.items()
@@ -119,6 +124,44 @@ def test_dryrun_record_on_the_fake_256_rank_world(records, arch_id,
                                        "bytes": 32 * sharded * 16 * 4}}
     if arch_id == "graphsage-reddit":
         assert set(coll) == {"all-gather", "all-reduce"}
+    if shape_name == "train_batch":
+        # the sparse gradients' nnz is an upper bound, and both sections
+        # say so; the gradients are averaged over `data`
+        assert rec["cost"]["note"] == coll["note"]
+        assert "upper bound" in coll["note"]
+        assert coll["all-reduce"]["count"] > 0
+
+
+_SERVED = """
+import torch
+import repro_torch.optim.adamw, repro_torch.models.recsys
+import repro_torch.distributed.train_step
+has = torch._C._dispatch_has_kernel_for_dispatch_key
+print(has("aten::_coalesce", "SparseMeta"), has("aten::_to_dense",
+                                                "SparseMeta"))
+from repro_torch.launch import dryrun
+dryrun.install_sparse_meta()
+dryrun.install_sparse_meta()
+print(has("aten::_coalesce", "SparseMeta"), has("aten::_to_dense",
+                                                "SparseMeta"))
+i = torch.empty((1, 7), dtype=torch.int64, device="meta")
+g = torch.sparse_coo_tensor(i, torch.empty((7, 3), device="meta"), (10, 3))
+c = g.coalesce()
+print(c.is_coalesced(), tuple(c.indices().shape), tuple(c.values().shape),
+      tuple(g.to_dense().shape), g.to_dense().layout)
+"""
+
+
+def test_sparse_meta_kernels_are_the_dry_runs_alone():
+    """Importing the training and serving modules registers no SparseMeta
+    coalesce or densify; `dryrun.install_sparse_meta` registers both (a
+    second call is a no-op), the coalesce keeping its input's nnz."""
+    r = subprocess.run([sys.executable, "-c", _SERVED], env=_env(),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().splitlines()[-3:] == [
+        "False False", "True True",
+        "True (1, 7) (7, 3) (10, 3) torch.strided"]
 
 
 # ---------------------------------------------------------------------------
