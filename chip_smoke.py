@@ -62,11 +62,19 @@ non-zero):
      world in this process: mode A) run their `fn` on this 1M table
      (`hop_kernel<false>`, `pq_lut_kernel`): inputs shaped as
      `local_args`, ids equal to `beam_search_device` called directly,
-     predicted argument bytes equal to the held ones; and `[dryrun]`:
-     `launch.dryrun` in a subprocess on this host (the fake 256- and
-     512-rank worlds, meta tensors) for the three ANN archs on both
-     meshes, qwen3-1.7b decode_32k and dcn-v2 serve_p99: argument
-     bytes, collective MB by op, flops x ranks / model flops;
+     predicted argument bytes equal to the held ones, the search's peak
+     device bytes; `[dryrun]`: `launch.dryrun` in a subprocess on this
+     host (the fake 256- and 512-rank worlds, meta tensors) for the
+     three ANN archs on both meshes, qwen3-1.7b decode_32k and dcn-v2
+     serve_p99: argument bytes, collective MB by op, flops x ranks /
+     model flops, bytes accessed, transcendentals, peak, temp and alias
+     bytes. (`[dryrun_peak]` prints after phase 3's build, beside whose
+     host-only Vamana graph it runs: qwen3-1.7b decode_32k and train_4k
+     and dlrm-rm2 train_batch as rank 0 of a fake 256-rank world in a
+     subprocess, the dry run's meta trace and then the step on CUDA
+     tensors of the same blocks; the card's peak bytes within 10% or 256
+     MB of the dry run's `peak_bytes`, dlrm-rm2's at most 256 MB above
+     it, an upper bound);
   6. recommender retrieval: SASRec at full width (embed_dim 50, seq_len 50,
      2 blocks) against 1,000,000 candidates (retrieval_cand), PQ m=10
      trained and encoded on the card, 64 one-user requests through
@@ -1426,7 +1434,9 @@ def phase_cells(index_1m, arrays_1m, card: str) -> dict:
     table (already on the card) with its 32 or 1,024 queries, shaped as
     `local_args` says; its ids against `beam_search_device` called
     directly with the same arguments; the dry run's predicted argument
-    bytes (`local_bytes`) against the bytes the rank holds. Returns the
+    bytes (`local_bytes`) against the bytes the rank holds; the search's
+    peak device bytes above what was allocated before it (the ANN cells'
+    only peak: the dry run cannot trace their hop loop). Returns the
     cells' launches (the direct calls not counted)."""
     import torch
     import torch.distributed as dist
@@ -1463,10 +1473,13 @@ def phase_cells(index_1m, arrays_1m, card: str) -> dict:
             cell.fn(arrays, q)                       # capture
             torch.cuda.synchronize()
             _build.reset_launch_counts()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             ids, d = cell.fn(arrays, q)
             torch.cuda.synchronize()
             t_cell = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - before
             for k, v in _build.launch_counts.items():
                 if k in launches:
                     launches[k] += v
@@ -1480,7 +1493,8 @@ def phase_cells(index_1m, arrays_1m, card: str) -> dict:
                 batch=q.shape[0], ids_equal_direct=equal,
                 valid_ids=int((ids >= 0).sum()),
                 predicted_arg_bytes=predicted, held_arg_bytes=held,
-                search_ms=f"{t_cell * 1e3:.3f}", card=json.dumps(card))
+                peak_bytes=peak, search_ms=f"{t_cell * 1e3:.3f}",
+                card=json.dumps(card))
             require(equal, f"{name}: the cell's ids differ from "
                     "beam_search_device's")
             require(predicted == held, f"{name}: the dry run predicts "
@@ -1511,12 +1525,21 @@ for arch, shape, both in %r:
 """
 
 
+# the keys every traced (non-ANN) dry-run record carries
+DRYRUN_KEYS = {"memory": ("argument_size_in_bytes", "output_size_in_bytes",
+                          "peak_bytes", "temp_size_in_bytes",
+                          "alias_size_in_bytes"),
+               "cost": ("flops", "bytes accessed", "transcendentals")}
+
+
 def phase_dryrun(root: str, card: str) -> None:
     """[dryrun]: `python -m repro_torch.launch.dryrun`'s cells on this
     host in a subprocess (the fake 256- and 512-rank worlds and the meta
     trace of the card's torch): the ANN archs on both meshes, qwen3-1.7b
     decode_32k and dcn-v2 serve_p99 on 256 ranks; one line a record
-    (argument bytes, collective MB by op, flops x ranks / model flops)."""
+    (argument bytes, collective MB by op, flops x ranks / model flops,
+    and for the traced cells, which must carry every `DRYRUN_KEYS` key,
+    bytes accessed, transcendentals, peak, temp and alias bytes)."""
     out = os.path.join(root, "dryrun")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     env.pop("REPRO_GNN", None)
@@ -1533,6 +1556,12 @@ def phase_dryrun(root: str, card: str) -> None:
         for sec in ("memory", "cost", "collectives"):
             require("error" not in rec[sec],
                     f"{fname}: {sec} {rec[sec]}")
+        mem, cost = rec["memory"], rec["cost"]
+        traced = rec["meta"].get("mode") is None       # not an ANN cell
+        if traced:
+            missing = [k for k in DRYRUN_KEYS["memory"] if k not in mem] + \
+                [k for k in DRYRUN_KEYS["cost"] if k not in cost]
+            require(not missing, f"{fname}: no {missing}")
         coll = {k: v for k, v in rec["collectives"].items() if k != "note"}
         log("dryrun", arch=rec["arch"], shape=rec["shape"],
             mesh=compact(rec["mesh"]), n_devices=rec["n_devices"],
@@ -1541,14 +1570,221 @@ def phase_dryrun(root: str, card: str) -> None:
                                    for k, v in coll.items()}),
             collective_counts=compact({k: v["count"]
                                        for k, v in coll.items()}),
-            flops=rec["cost"]["flops"],
-            flops_x_ranks_over_model=rec["cost"].get(
-                "flops_x_ranks_over_model"),
+            flops=cost["flops"],
+            flops_x_ranks_over_model=cost.get("flops_x_ranks_over_model"),
+            bytes_accessed=cost.get("bytes accessed", "-"),
+            transcendentals=cost.get("transcendentals", "-"),
+            peak_bytes=mem.get("peak_bytes", "-"),
+            temp_size_in_bytes=mem.get("temp_size_in_bytes", "-"),
+            alias_size_in_bytes=mem.get("alias_size_in_bytes", "-"),
             t_build_s=rec["t_build_s"], t_trace_s=rec["t_trace_s"],
             mode=rec["meta"].get("mode", "-"), card=json.dumps(card))
         n += 1
     log("dryrun", records=n, wall_s=f"{time.perf_counter() - t0:.2f}")
     require(n == 3 * 2 * 2 + 2, f"{n} dry-run records")
+
+
+# the dry run's peak held against the card (`[dryrun_peak]`): (arch,
+# shape, whether the peak is an upper bound only). dlrm-rm2's is: its
+# sparse gradients' nnz and its meta lookup's ids are upper bounds.
+PEAK_CELLS = (("qwen3-1.7b", "decode_32k", False),
+              ("qwen3-1.7b", "train_4k", False),
+              ("dlrm-rm2", "train_batch", True))
+PEAK_REL, PEAK_SLACK = 0.10, 256 << 20     # the band: 10% or 256 MB
+
+
+def card_args(cell, local, seed: int = 0):
+    """`local` (the rank's meta blocks, `inputs.local_args`) as CUDA
+    tensors, in place for modules (their `attach` marks kept): float
+    leaves seeded normal draws; the batch's integer leaves as the port's
+    batch makers draw them for the family (an LM's training tokens from
+    `TokenStream`, decode tokens uniform as `[lm_serve]` draws them, a
+    recommender's ids and labels from `ClickStream`); other integer
+    leaves zeros. Returns (args, {path: how})."""
+    import torch
+    from torch import nn
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import ClickStream, TokenStream
+    arch = get_arch(cell.arch_id)
+    shape = arch.shape(cell.shape_name)
+    rng = np.random.default_rng(seed)
+    g = torch.Generator("cuda").manual_seed(seed)
+    batch = {}
+    if shape.kind == "lm_train":
+        batch = TokenStream(arch.model.vocab_size, shape.seq_len,
+                            shape.global_batch, seed=seed).batch_at(0)
+    elif shape.kind == "lm_decode":
+        batch = {"token": rng.integers(0, arch.model.vocab_size,
+                                       shape.global_batch).astype(np.int32)}
+    elif arch.family == "recsys" and arch.model.kind != "sasrec":
+        batch = ClickStream(arch.model, shape.batch, seed=seed).batch_at(0)
+    how = {}
+
+    def leaf(path, t):
+        key = path.rsplit("/", 1)[-1]
+        if t.dtype.is_floating_point:
+            how[path] = "normal"
+            return torch.randn(tuple(t.shape), generator=g, device="cuda",
+                               dtype=torch.float32).to(t.dtype)
+        if int(path.split("/")[0]) in cell.whole and key in batch:
+            how[path] = "batch_maker"
+            got = torch.from_numpy(np.ascontiguousarray(batch[key]))
+            return got.to(device="cuda", dtype=t.dtype)
+        how[path] = "zeros"
+        return torch.zeros(tuple(t.shape), dtype=t.dtype, device="cuda")
+
+    def walk(tree, path):
+        if isinstance(tree, torch.Tensor):
+            return leaf(path, tree)
+        if isinstance(tree, nn.Module):
+            for name, p in list(tree.named_parameters()) + \
+                    list(tree.named_buffers()):
+                owner, _, attr = name.rpartition(".")
+                new = leaf(f"{path}/{name.replace('.', '/')}", p.detach())
+                if isinstance(p, nn.Parameter):
+                    new = nn.Parameter(new, requires_grad=p.requires_grad)
+                setattr(tree.get_submodule(owner), attr, new)
+            return tree
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return type(tree)(*(walk(getattr(tree, f), f"{path}/{f}")
+                                for f in tree._fields))
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(walk(c, f"{path}/{i}")
+                              for i, c in enumerate(tree))
+        if isinstance(tree, dict):
+            return {k: walk(c, f"{path}/{k}") for k, c in tree.items()}
+        return tree
+
+    args = tuple(walk(a, str(i)) for i, a in enumerate(local))
+    return args, how
+
+
+def dryrun_peak_cell(arch_id: str, shape_name: str) -> dict:
+    """One cell in a fake 256-rank world on the card: the dry run's record
+    (`dryrun.run_cell`, meta), then rank 0's step once on CUDA tensors of
+    the same blocks (`card_args`); the step's peak device bytes above
+    what was allocated before it."""
+    import gc
+
+    import torch
+    from repro_torch.distributed.act_sharding import set_policy
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.inputs import build_cell, local_args
+    from repro_torch.launch.mesh import make_production_grid
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch_id, shape_name, multi_pod=False,
+                          verbose=False)
+    t_meta = time.perf_counter() - t0
+    grid = make_production_grid()
+    set_policy(grid)
+    try:
+        cell = build_cell(arch_id, shape_name, grid)
+        base = torch.cuda.memory_allocated()
+        args, how = card_args(cell, local_args(cell, grid))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        out = cell.fn(*args)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t1
+        measured = torch.cuda.max_memory_allocated() - before
+    finally:
+        set_policy(None)
+    draws = {}
+    for path, h in how.items():
+        draws.setdefault(h, []).append(path)
+    del out, args, cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(arch=arch_id, shape=shape_name, measured=measured,
+                arg_bytes=before - base, memory=rec["memory"],
+                t_meta_s=round(t_meta, 2), t_step_s=round(t_step, 2),
+                draws={h: p if h != "normal" else len(p)
+                       for h, p in draws.items()})
+
+
+_DRYRUN_PEAK = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from repro_torch.launch.mesh import fake_world
+fake_world(256)
+for arch, shape, _ in chip_smoke.PEAK_CELLS:
+    print(json.dumps(chip_smoke.dryrun_peak_cell(arch, shape)), flush=True)
+"""
+
+
+def start_dryrun_peak(root: str):
+    """Start `[dryrun_peak]`'s subprocess (`_DRYRUN_PEAK`), its output
+    under `root`; `phase_dryrun_peak` waits for it. It runs beside the
+    10k build, whose Vamana graph holds the host for minutes and the card
+    not at all, so no timed phase shares the card with it."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env.pop("REPRO_GNN", None)
+    env.pop("REPRO_MB_BUDGET_GB", None)
+    out = open(os.path.join(root, "dryrun_peak.out"), "w+")
+    err = open(os.path.join(root, "dryrun_peak.err"), "w+")
+    proc = subprocess.Popen([sys.executable, "-c", _DRYRUN_PEAK, ROOT],
+                            env=env, stdout=out, stderr=err, text=True)
+    return proc, out, err
+
+
+def stop_dryrun_peak(run) -> None:
+    """Kill a `start_dryrun_peak` run that is still going; close its
+    files."""
+    proc, out, err = run
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait(timeout=60)
+    out.close()
+    err.close()
+
+
+def phase_dryrun_peak(run, card: str) -> None:
+    """[dryrun_peak]: the dry run's `peak_bytes` against the card's
+    allocator. One subprocess (`start_dryrun_peak`) starts a fake world
+    of 256 ranks (its collectives move nothing: values are garbage after
+    a gather, the bytes are not) and runs each `PEAK_CELLS` cell twice as
+    rank 0: the dry run's meta trace, then the step on CUDA tensors,
+    measuring max_memory_allocated() - memory_allocated() before the
+    call. Within `PEAK_REL` or `PEAK_SLACK` of the peak, whichever is
+    larger; an upper-bound cell at most `PEAK_SLACK` above it."""
+    proc, out, err = run
+    try:
+        proc.wait(timeout=400)
+    except subprocess.TimeoutExpired:
+        stop_dryrun_peak(run)
+        raise AssertionError("the dry run's peak check ran over 400 s")
+    out.seek(0)
+    err.seek(0)
+    text = out.read()
+    require(proc.returncode == 0, "the dry run's peak check failed: "
+            + text[-1500:] + err.read()[-3000:])
+    got = [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+    require(len(got) == len(PEAK_CELLS), f"{len(got)} cells measured")
+    bad = []
+    for res, (_, _, upper) in zip(got, PEAK_CELLS):
+        mem, measured = res["memory"], res["measured"]
+        peak = mem["peak_bytes"]
+        band = max(PEAK_REL * peak, PEAK_SLACK)
+        log("dryrun_peak", arch=res["arch"], shape=res["shape"],
+            measured_peak_bytes=measured, dryrun_peak_bytes=peak,
+            ratio=f"{measured / peak:.4f}" if peak else "-",
+            band_bytes=int(band), check="upper_bound" if upper else "band",
+            arg_bytes_card=res["arg_bytes"],
+            arg_bytes_dryrun=mem["argument_size_in_bytes"],
+            temp_size_in_bytes=mem["temp_size_in_bytes"],
+            alias_size_in_bytes=mem["alias_size_in_bytes"],
+            output_size_in_bytes=mem["output_size_in_bytes"],
+            t_meta_s=res["t_meta_s"], t_step_s=res["t_step_s"],
+            draws=compact(res["draws"]), card=json.dumps(card))
+        ok = measured <= peak + PEAK_SLACK if upper else \
+            abs(measured - peak) <= band
+        if not ok:
+            bad.append(f"{res['arch']} {res['shape']}: the card's peak "
+                       f"{measured} against the dry run's {peak}")
+    require(not bad, "; ".join(bad))
 
 
 def phase_diskann(arrays, aisaq_idx, aisaq_lay, queries, gt, aisaq_ids):
@@ -6116,7 +6352,12 @@ def run_phases(root: str) -> int:
     import torch
     timed("env", phase_env)
     errs = timed("parity", phase_parity)
-    idx, lay, queries, gt, arrays = timed("build10k", build_index_10k)
+    peak_run = start_dryrun_peak(root)
+    try:
+        idx, lay, queries, gt, arrays = timed("build10k", build_index_10k)
+        timed("dryrun_peak", phase_dryrun_peak, peak_run, card_line())
+    finally:
+        stop_dryrun_peak(peak_run)
     # the first profiler window: after the build's host-only minutes (see
     # the module docstring)
     adc_ops = timed("adc_ops", adc_device_ops)

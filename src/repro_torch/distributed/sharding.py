@@ -279,9 +279,13 @@ def unshard(block: torch.Tensor, spec: Spec, grid: ProcessGrid,
         for d, e in enumerate(spec):
             shape[d] *= grid.size(_axes(e))
     shape = tuple(int(s) for s in shape)
-    if block.is_meta:           # a shape trace: the gather, then the shape
-        all_gather(block, group, members)
-        return block.new_empty(shape)
+    if block.is_meta:
+        # a shape trace (`launch.dryrun`): the gathered stack alive while
+        # the full tensor is filled from it, as below, in one copy in
+        # place of one a block
+        got = all_gather(block, group, members)
+        out = block.new_empty(shape)
+        return out.copy_(got.flatten()[:out.numel()].view(shape))
     # blocks of an uneven split differ by one: gather them padded to the
     # first (the longest), then cut each to its own size
     first = block_slices(shape, spec, grid, members[0])

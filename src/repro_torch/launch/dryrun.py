@@ -17,14 +17,30 @@ input (`launch.inputs.local_args`). Each cell writes one JSON record:
     cell's: model flops, microbatches, parameter bytes, ANN mode);
   * `t_build_s` (the cell and its blocks) and `t_trace_s` (the step on
     meta), in place of the reference's lower and compile seconds;
-  * `memory`: `argument_size_in_bytes` (the rank's blocks, exact) and
-    `output_size_in_bytes` (the step's answer); no peak (`peak_note`
-    says why);
+  * `memory`: `argument_size_in_bytes` (the rank's blocks, exact),
+    `output_size_in_bytes` (the step's answer), `peak_bytes` (the most
+    bytes of storages made during the step alive at once: a storage
+    counts its bytes from the op that first returns it until it is
+    freed; views and in-place ops add nothing, the argument blocks are
+    not counted), `temp_size_in_bytes` (the peak less the outputs the
+    step made: peak - (output - alias), at least 0) and
+    `alias_size_in_bytes` (the outputs that are argument storages: the
+    decode cache updated in place, the trained state), so the
+    reference's argument + temp + output - alias is what must fit;
+    `peak_note` states the convention and the meta-only branches that
+    make the peak an upper bound;
   * `cost`: `flops`, the rank's (`torch.utils.flop_counter.
     FlopCounterMode`: matrix products and attention; elementwise ops,
     gathers and segment sums count 0), and `flops_x_ranks_over_model`,
     flops x ranks / the cell's model flops (1 where the ranks split the
     useful work, the world's size where each rank does all of it);
+    `bytes accessed`, op by op (every tensor argument read and every
+    output written once, a sparse tensor its indices and values; views,
+    metadata ops, empty allocations and collectives count 0: the eager
+    port's traffic, not XLA's fused figure) and `transcendentals` (the
+    output elements of exp, log, tanh, sigmoid, erf, rsqrt, sqrt, pow,
+    sin and cos); `note` says what the counts are and where a meta-only
+    branch makes them upper bounds;
   * `collectives`: {op: {count, bytes}} of every collective of
     `launch.mesh` during the step (`record_collectives`: the reference's
     op names, bytes the output on this rank a time).
@@ -46,13 +62,16 @@ Exits 1 if any cell fails.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
 import time
 import traceback
+import weakref
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import ASSIGNED_ARCHS, get_arch
 from repro_torch.launch.mesh import fake_world, make_production_grid, \
@@ -62,24 +81,165 @@ from repro_torch.launch.mesh import fake_world, make_production_grid, \
 ANN_K = 10
 NNZ_NOTE = ("a sparse gradient's nnz is taken as the rows it read, an upper "
             "bound: on the card a coalesce removes the duplicate ids")
-PEAK_NOTE = ("no peak: meta tensors have no allocator to read, and "
-             "MemTracker over a meta trace gave 485 GB for one qwen3-1.7b "
-             "decode_32k step (no rank holds that much), so no figure is "
-             "given")
+PEAK_NOTE = ("peak_bytes: the most bytes of storages made during the step "
+             "alive at once (each from the op that first returns it until "
+             "it is freed; views and in-place ops add nothing; the argument "
+             "blocks are not counted)")
+BYTES_NOTE = ("bytes accessed: op by op, every tensor argument read and "
+              "every output written once (views, metadata ops, empty "
+              "allocations and collectives count 0): the eager port's "
+              "traffic, not XLA's fused figure")
+# the meta-only branches a cell's step takes that change what it holds or
+# moves; each makes the peak and the bytes an upper bound or leaves out
+# what it says
+ATTN_NOTE = ("attention runs at most 8 blocks a side on meta "
+             "(models/layers._Blocks), not the card's (512, 1024) tiles: "
+             "the peak and the bytes are upper bounds")
+CSR_NOTE = ("prepare_csr builds shape-only CSRs on meta and the segment "
+            "sums (a CUDA kernel) give their shape: their bytes are not "
+            "counted")
+LOOKUP_NOTE = ("a row-sharded lookup takes every id as local on meta "
+               "(models/recsys._local_rows): the peak and the bytes are "
+               "upper bounds")
+WIDEN_NOTE = ("off the card mm_f32 widens bfloat16 operands to float32 "
+              "(models/layers.bf16_bmm_route): the bytes and the peak "
+              "count the widened copies")
+ANN_PEAK_NOTE = ("not traced: the card's peak of the aisaq-sift1m searches "
+                 "is chip_smoke.py's [cells] peak_bytes")
+
+
+def _tensors(tree):
+    """Every tensor of a step's arguments or answer (tuples, lists, dicts,
+    NamedTuples; a module's parameters and buffers)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, torch.nn.Module):
+        yield from tree.parameters()
+        yield from tree.buffers()
+    elif isinstance(tree, (tuple, list)):
+        for c in tree:
+            yield from _tensors(c)
+    elif isinstance(tree, dict):
+        for c in tree.values():
+            yield from _tensors(c)
+
+
+def _parts(t: torch.Tensor):
+    """The dense tensors that hold t's data: t, or a sparse COO tensor's
+    indices and values."""
+    if t.layout is torch.sparse_coo:
+        return (t._indices(), t._values())
+    return (t,)
+
+
+def _bytes(t: torch.Tensor) -> int:
+    return sum(p.numel() * p.element_size() for p in _parts(t))
+
+
+def _storages(t: torch.Tensor):
+    return [p.untyped_storage() for p in _parts(t)]
 
 
 def _nbytes(tree) -> int:
-    """Bytes of every tensor in a step's answer (tuples, lists, dicts,
-    NamedTuples, modules; other values count 0)."""
-    if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
-    if isinstance(tree, torch.nn.Module):
-        return sum(p.numel() * p.element_size() for p in tree.parameters())
-    if isinstance(tree, dict):
-        tree = tree.values()
-    if isinstance(tree, (tuple, list, type({}.values()))):
-        return sum(_nbytes(c) for c in tree)
-    return 0
+    """Bytes of every tensor in a step's answer."""
+    return sum(_bytes(t) for t in _tensors(tree))
+
+
+# ops that allocate their output without writing it
+_ALLOCS = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
+                     "new_empty_strided"})
+# ops whose output elements are the record's transcendentals (and their
+# in-place forms)
+_TRANSCENDENTAL = frozenset({"exp", "log", "tanh", "sigmoid", "erf",
+                             "rsqrt", "sqrt", "pow", "sin", "cos"})
+_COLLECTIVES = frozenset({"c10d", "_c10d_functional", "c10d_functional"})
+
+
+@functools.lru_cache(maxsize=None)
+def _op_info(func):
+    """(collective, allocation, names of its write-only `out=` arguments,
+    mutable, transcendental) of an op."""
+    name = func.overloadpacket.__name__
+    return (func.namespace in _COLLECTIVES, name in _ALLOCS,
+            frozenset(a.name for a in func._schema.arguments if a.is_out),
+            func._schema.is_mutable, name.rstrip("_") in _TRANSCENDENTAL)
+
+
+def _flat(x, acc: list) -> list:
+    """acc + the tensors of an op's arguments or outputs (nested lists and
+    tuples)."""
+    for a in x:
+        if isinstance(a, torch.Tensor):
+            acc.append(a)
+        elif isinstance(a, (list, tuple)):
+            _flat(a, acc)
+    return acc
+
+
+class Tally(TorchDispatchMode):
+    """While open, counts each op's bytes accessed and transcendentals
+    (the conventions of `BYTES_NOTE`) and the bytes of the storages made
+    while it is open that are alive: `peak` is their most. Storages that
+    exist when it opens (`args`, and any other it first sees as an op's
+    input) are not counted."""
+
+    def __init__(self, args=()):
+        super().__init__()
+        self.bytes_accessed = 0
+        self.transcendentals = 0
+        self.live = 0
+        self.peak = 0
+        # id(storage): (its bytes counted live, a weak reference whose
+        # callback takes them off when the storage is freed)
+        self._held = {}
+        for t in _tensors(args):
+            for st in _storages(t):
+                self._hold(st, False)
+
+    def _hold(self, st, made: bool) -> None:
+        """Track st (its bytes live if `made`) unless it is tracked
+        already."""
+        key = id(st)
+        if key in self._held:
+            return
+        n = st.nbytes() if made else 0
+        self._held[key] = (n, weakref.ref(st, functools.partial(
+            self._free, key)))
+        self.live += n
+        self.peak = max(self.peak, self.live)
+
+    def _free(self, key: int, _ref) -> None:
+        self.live -= self._held.pop(key)[0]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        collective, alloc, write_only, mutable, trans = _op_info(func)
+        if collective:
+            return out
+        outs = _flat(out if isinstance(out, (tuple, list)) else (out,), [])
+        if not outs:                   # a metadata op (sizes, nnz, flags)
+            return out
+        reads, written = _flat(args, []), []
+        for k, v in kwargs.items():
+            _flat((v,), written if k in write_only else reads)
+        in_st = set()
+        for t in (*reads, *written):
+            for st in _storages(t):
+                self._hold(st, False)
+                in_st.add(id(st))
+        view = not mutable             # every output aliases an input
+        for t in outs:
+            for st in _storages(t):
+                self._hold(st, True)
+                view = view and id(st) in in_st
+        if view or alloc:
+            return out
+        self.bytes_accessed += sum(map(_bytes, reads)) + \
+            sum(map(_bytes, outs))
+        if trans:
+            self.transcendentals += sum(t.numel() for t in outs)
+        return out
 
 
 def _first_error(e: BaseException) -> str:
@@ -131,17 +291,51 @@ def install_sparse_meta() -> None:
 
 
 def trace(fn, args) -> dict:
-    """One call of fn(*args) on meta tensors: its flops, collectives and
-    output bytes, and whether it coalesced a sparse tensor."""
+    """One call of fn(*args) on meta tensors: its flops, collectives,
+    bytes accessed, transcendentals, peak, output and alias bytes, and
+    whether it coalesced a sparse tensor."""
     from torch.utils.flop_counter import FlopCounterMode
     install_sparse_meta()
     before = _coalesced[0]
+    arg_st = {id(st) for t in _tensors(args) for st in _storages(t)}
     with record_collectives() as coll, \
-            FlopCounterMode(display=False) as fc:
+            FlopCounterMode(display=False) as fc, Tally(args) as tally:
         out = fn(*args)
+    alias = sum(_bytes(t) for t in _tensors(out)
+                if any(id(st) in arg_st for st in _storages(t)))
     return {"flops": float(fc.get_total_flops()), "collectives": coll,
-            "output_size_in_bytes": _nbytes(out),
+            "bytes accessed": tally.bytes_accessed,
+            "transcendentals": tally.transcendentals,
+            "peak_bytes": tally.peak, "output_size_in_bytes": _nbytes(out),
+            "alias_size_in_bytes": alias,
             "sparse": _coalesced[0] > before}
+
+
+def branch_notes(cell, grid, *, cp_attn: bool = False) -> list:
+    """The meta-only branches (`ATTN_NOTE`, `WIDEN_NOTE`, `CSR_NOTE`,
+    `LOOKUP_NOTE`) that the cell's step takes where they change what it
+    holds or moves."""
+    from repro_torch.distributed import sharding as SH
+    arch = get_arch(cell.arch_id)
+    shape = arch.shape(cell.shape_name)
+    notes = []
+    if shape.kind in ("lm_train", "lm_prefill"):
+        # `_Blocks` on meta: max(block, ceil(S / 8)) a side, the card's
+        # blocks at most 512 queries (a rank's q rows under CP) and 1,024
+        # keys
+        S = shape.seq_len
+        sq = S // grid.sizes["model"] if cp_attn else S
+        if -(-sq // 8) > min(512, sq) or -(-S // 8) > min(1024, S):
+            notes.append(ATTN_NOTE)
+    if arch.family == "lm" and arch.model.dtype == "bfloat16":
+        notes.append(WIDEN_NOTE)
+    if shape.kind in ("gnn_full", "gnn_batched"):
+        notes.append(CSR_NOTE)
+    if arch.family == "recsys" and any(
+            SH.spec_axes(sp) for n, sp in cell.place.params.items()
+            if n.startswith(("tables/", "wide/"))):
+        notes.append(LOOKUP_NOTE)
+    return notes
 
 
 def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
@@ -163,7 +357,8 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
                "meta": dict(cell.meta),
                "memory": {"argument_size_in_bytes": local_bytes(cell, grid)}}
         t0 = time.time()
-        if get_arch(arch_id).family == "ann":
+        ann = get_arch(arch_id).family == "ann"
+        if ann:
             got = _ann_record(cell, local)
             rec["collectives_note"] = got.pop("collectives_note")
         else:
@@ -178,26 +373,40 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
     finally:
         set_policy(None)
     mem = rec["memory"]
+    notes = [] if ann else branch_notes(cell, grid, cp_attn=cp_attn)
+    if got.get("sparse"):
+        notes.append(NNZ_NOTE)
     if "output_size_in_bytes" in got:
         mem["output_size_in_bytes"] = got["output_size_in_bytes"]
-    mem["peak_note"] = PEAK_NOTE
+    if "peak_bytes" in got:
+        made = got["output_size_in_bytes"] - got["alias_size_in_bytes"]
+        mem.update(peak_bytes=got["peak_bytes"],
+                   temp_size_in_bytes=max(0, got["peak_bytes"] - made),
+                   alias_size_in_bytes=got["alias_size_in_bytes"])
+    mem["peak_note"] = ANN_PEAK_NOTE if ann else "; ".join([PEAK_NOTE,
+                                                           *notes])
     if "cost" in got:
         rec["cost"] = got["cost"]
     else:
         mf = cell.meta["model_flops"]
         rec["cost"] = {"flops": got["flops"],
                        "flops_x_ranks_over_model":
-                           got["flops"] * grid.world / mf if mf else None}
+                           got["flops"] * grid.world / mf if mf else None,
+                       "bytes accessed": got["bytes accessed"],
+                       "transcendentals": got["transcendentals"],
+                       "note": "; ".join([BYTES_NOTE, *notes])}
     rec["collectives"] = got["collectives"]
     if got.get("sparse"):
-        rec["cost"]["note"] = rec["collectives"]["note"] = NNZ_NOTE
+        rec["collectives"]["note"] = NNZ_NOTE
     if verbose:
         coll = rec["collectives"]
         ops = coll if "error" in coll else {
             k: (v["count"], round(v["bytes"] / 1e6, 1))
             for k, v in coll.items() if k != "note"}
         print(f"  args {mem['argument_size_in_bytes'] / 1e9:.4f} GB, "
-              f"flops {rec['cost'].get('flops')}, collectives "
+              f"peak {mem.get('peak_bytes', 0) / 1e9:.4f} GB, "
+              f"flops {rec['cost'].get('flops')}, bytes "
+              f"{rec['cost'].get('bytes accessed')}, collectives "
               f"(count, MB) {ops}", flush=True)
     return rec
 

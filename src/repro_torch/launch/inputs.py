@@ -378,7 +378,14 @@ def arg_leaves(cell: Cell):
 
 
 def _block(t: torch.Tensor, spec, grid, rank) -> torch.Tensor:
-    return t[SH.block_slices(t.shape, spec, grid, rank)]
+    """The rank's block of t: a new meta tensor of the block's shape for
+    a meta t (a view would keep the global storage alive, and the dry
+    run's peak counts storages), a view of t otherwise (`sharding.shard`)."""
+    sl = SH.block_slices(t.shape, spec, grid, rank)
+    if t.is_meta:
+        return torch.empty(tuple(s.stop - s.start for s in sl),
+                           dtype=t.dtype, device=META)
+    return t[sl]
 
 
 def _blocks(tree, specs, grid, rank):

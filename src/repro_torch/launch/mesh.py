@@ -240,10 +240,13 @@ def all_gather(t: torch.Tensor, group, members: Sequence[int]
     if n == 1:
         return t[None]
     if t.is_meta:
-        # a shape trace (`launch.dryrun`): the answer is its shape (the
-        # fake backend's per-member checks cost ~17 ms a 256-rank call)
+        # a shape trace (`launch.dryrun`): the bytes the path below holds
+        # and moves (the members' buffers, then their stack, alive
+        # together: the dry run's peak counts both) in two ops, without
+        # the fake backend, whose per-member checks cost ~17 ms a
+        # 256-rank call
         _note("all-gather", n * _nbytes(t))
-        return t.new_empty((n,) + tuple(t.shape))
+        return t.new_empty((n,) + tuple(t.shape)).clone()
     bits = t.view(torch.uint8) if t.dtype == torch.bfloat16 else t
     src = _wire(bits, group)
     out = [torch.empty_like(src) for _ in range(n)]

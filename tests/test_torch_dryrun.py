@@ -6,10 +6,13 @@ steps it traces, on the CPU.
   process): qwen3-1.7b decode_32k, dcn-v2 serve_p99, graphsage-reddit
   full_graph_sm, aisaq-sift1b serve_q1k and the four recommenders'
   train_batch. Each record has every section without an error, its
-  argument bytes are the rank's blocks (`inputs.local_bytes`), and its
-  collectives are those of the step. The training cells' sparse
-  gradients trace through the dry run's own sparse meta kernels, which
-  importing the served modules does not register.
+  argument bytes are the rank's blocks (`inputs.local_bytes`), its
+  collectives are those of the step, and each traced record carries the
+  reference's peak, temp and alias bytes (alias: the donated state or
+  cache), bytes accessed and transcendentals, with their notes. The
+  training cells' sparse gradients trace through the dry run's own
+  sparse meta kernels, which importing the served modules does not
+  register.
 - The collective recorder (`launch.mesh.record_collectives`) on a real
   world of 4 gloo CPU ranks against the same steps of reduced archs on a
   fake 4-rank world with meta tensors (a subprocess): equal counts and
@@ -35,6 +38,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_arch
+from repro_torch.launch import dryrun
 from repro_torch.launch import inputs as I
 from repro_torch.launch.mesh import ProcessGrid, record_collectives
 from torch_world import World
@@ -88,10 +92,28 @@ def test_dryrun_record_on_the_fake_256_rank_world(records, arch_id,
                                                                    grid)
     assert rec["meta"]["model_flops"] == cell.meta["model_flops"]
     coll = rec["collectives"]
+    mem, cost = rec["memory"], rec["cost"]
+    if arch_id != "aisaq-sift1b":
+        # the reference's memory and cost fields: temp is the peak less
+        # the outputs the step made; alias the outputs in argument storage
+        # (the cache written in place, the trained state)
+        made = mem["output_size_in_bytes"] - mem["alias_size_in_bytes"]
+        assert mem["temp_size_in_bytes"] == max(0, mem["peak_bytes"] - made)
+        assert 0 < mem["peak_bytes"] < 80e9
+        assert cost["bytes accessed"] > mem["peak_bytes"]
+        assert cost["transcendentals"] >= 0
+        assert mem["peak_note"].startswith(dryrun.PEAK_NOTE)
+        assert cost["note"].startswith(dryrun.BYTES_NOTE)
+        donated = sum(I._block(t, s, grid, None).numel() * t.element_size()
+                      for p, t, s in I.arg_leaves(cell)
+                      if int(p.split("/")[0]) in cell.donate)
+        assert mem["alias_size_in_bytes"] == donated
     if arch_id == "aisaq-sift1b":
         # mode B: 256 shards, the 1,024 queries replicated: two gathers
         # of (256, 1024, 10) int32 / float32
         assert rec["meta"]["mode"] == "B"
+        assert "peak_bytes" not in mem
+        assert mem["peak_note"] == dryrun.ANN_PEAK_NOTE
         assert coll == {"all-gather": {"count": 2,
                                        "bytes": 2 * 256 * 1024 * 10 * 4}}
         # the rank's shard of the chunk table, the centroids, its entry
@@ -126,8 +148,11 @@ def test_dryrun_record_on_the_fake_256_rank_world(records, arch_id,
         assert set(coll) == {"all-gather", "all-reduce"}
     if shape_name == "train_batch":
         # the sparse gradients' nnz is an upper bound, and both sections
-        # say so; the gradients are averaged over `data`
-        assert rec["cost"]["note"] == coll["note"]
+        # say so (the cost's and the peak's notes with the rest); the
+        # gradients are averaged over `data`
+        assert coll["note"] == dryrun.NNZ_NOTE
+        assert dryrun.NNZ_NOTE in cost["note"]
+        assert dryrun.NNZ_NOTE in mem["peak_note"]
         assert "upper bound" in coll["note"]
         assert coll["all-reduce"]["count"] > 0
 
