@@ -68,13 +68,17 @@ non-zero):
      three ANN archs on both meshes, qwen3-1.7b decode_32k and dcn-v2
      serve_p99: argument bytes, collective MB by op, flops x ranks /
      model flops, bytes accessed, transcendentals, peak, temp and alias
-     bytes. (`[dryrun_peak]` prints after phase 3's build, beside whose
-     host-only Vamana graph it runs: qwen3-1.7b decode_32k and train_4k
-     and dlrm-rm2 train_batch as rank 0 of a fake 256-rank world in a
-     subprocess, the dry run's meta trace and then the step on CUDA
-     tensors of the same blocks; the card's peak bytes within 10% or 256
-     MB of the dry run's `peak_bytes`, dlrm-rm2's at most 256 MB above
-     it, an upper bound);
+     bytes, and the ANN cells' hops counted and per-hop counts.
+     (`[dryrun_peak]` prints after phase 3's build, beside whose
+     host-only Vamana graph it runs: qwen3-1.7b decode_32k and train_4k,
+     dlrm-rm2 train_batch, and aisaq-sift1m and aisaq-sift1b serve_q1k as
+     rank 0 of a fake 256-rank world in a subprocess, the dry run's meta
+     trace and then the step on CUDA tensors of the same blocks; the
+     card's peak bytes within 10% or 256 MB of the dry run's
+     `peak_bytes`, dlrm-rm2's at most 256 MB above it, an upper bound;
+     an ANN cell's shard is a real packed chunk table over a random
+     R-regular graph, searched eagerly (`hop_kernel<false>`,
+     `pq_lut_kernel`) and merged, within 10% or 2 MB);
   6. recommender retrieval: SASRec at full width (embed_dim 50, seq_len 50,
      2 blocks) against 1,000,000 candidates (retrieval_cand), PQ m=10
      trained and encoded on the card, 64 one-user requests through
@@ -297,7 +301,9 @@ path's as `launches_storage`, the dynamic index's (inserts and readers)
 as `launches_dynamic`, the service's as `launches_service`, the sharded
 phases' (every rank's timed searches, summed) as `launches_sharded` and
 `launches_sharded1m`, the towers' graph requests as
-`launches_towers`, the `[cells]` searches' as `launches_cells`; `segment_sum`'s `launches` are the GNN serving
+`launches_towers`, the `[cells]` searches' as `launches_cells`, the
+`[dryrun_peak]` ANN cells' eager searches as `launches_dryrun_peak`;
+`segment_sum`'s `launches` are the GNN serving
 path's, and every row has `launches_gnn_train` and
 `launches_gnn_sharded` (every rank's timed float32 step). Each phase's seconds are printed as it ends
 (`[phase_s]`) and all together before the card line. The run's index
@@ -1435,9 +1441,10 @@ def phase_cells(index_1m, arrays_1m, card: str) -> dict:
     `local_args` says; its ids against `beam_search_device` called
     directly with the same arguments; the dry run's predicted argument
     bytes (`local_bytes`) against the bytes the rank holds; the search's
-    peak device bytes above what was allocated before it (the ANN cells'
-    only peak: the dry run cannot trace their hop loop). Returns the
-    cells' launches (the direct calls not counted)."""
+    peak device bytes above what was allocated before it (the served
+    graphs' replay; the dry run's traced peak is held against the eager
+    search in `[dryrun_peak]`). Returns the cells' launches (the direct
+    calls not counted)."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_arch
@@ -1525,11 +1532,12 @@ for arch, shape, both in %r:
 """
 
 
-# the keys every traced (non-ANN) dry-run record carries
+# the keys every dry-run record carries, and those an ANN cell adds
 DRYRUN_KEYS = {"memory": ("argument_size_in_bytes", "output_size_in_bytes",
                           "peak_bytes", "temp_size_in_bytes",
                           "alias_size_in_bytes"),
                "cost": ("flops", "bytes accessed", "transcendentals")}
+DRYRUN_ANN_KEYS = ("hops_counted", "per_hop", "kernels")
 
 
 def phase_dryrun(root: str, card: str) -> None:
@@ -1538,8 +1546,9 @@ def phase_dryrun(root: str, card: str) -> None:
     trace of the card's torch): the ANN archs on both meshes, qwen3-1.7b
     decode_32k and dcn-v2 serve_p99 on 256 ranks; one line a record
     (argument bytes, collective MB by op, flops x ranks / model flops,
-    and for the traced cells, which must carry every `DRYRUN_KEYS` key,
-    bytes accessed, transcendentals, peak, temp and alias bytes)."""
+    bytes accessed, transcendentals, peak, temp and alias bytes; every
+    record must carry every `DRYRUN_KEYS` key, an ANN cell also
+    `DRYRUN_ANN_KEYS`, whose hops counted and per-hop counts it logs)."""
     out = os.path.join(root, "dryrun")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     env.pop("REPRO_GNN", None)
@@ -1557,11 +1566,15 @@ def phase_dryrun(root: str, card: str) -> None:
             require("error" not in rec[sec],
                     f"{fname}: {sec} {rec[sec]}")
         mem, cost = rec["memory"], rec["cost"]
-        traced = rec["meta"].get("mode") is None       # not an ANN cell
-        if traced:
-            missing = [k for k in DRYRUN_KEYS["memory"] if k not in mem] + \
-                [k for k in DRYRUN_KEYS["cost"] if k not in cost]
-            require(not missing, f"{fname}: no {missing}")
+        ann = rec["meta"].get("mode") is not None
+        missing = [k for k in DRYRUN_KEYS["memory"] if k not in mem] + \
+            [k for k in DRYRUN_KEYS["cost"] + (DRYRUN_ANN_KEYS if ann
+                                               else ()) if k not in cost]
+        require(not missing, f"{fname}: no {missing}")
+        ann_counts = dict(hops_counted=cost["hops_counted"],
+                          per_hop_flops=cost["per_hop"]["flops"],
+                          per_hop_bytes=cost["per_hop"]["bytes accessed"]) \
+            if ann else {}
         coll = {k: v for k, v in rec["collectives"].items() if k != "note"}
         log("dryrun", arch=rec["arch"], shape=rec["shape"],
             mesh=compact(rec["mesh"]), n_devices=rec["n_devices"],
@@ -1578,7 +1591,8 @@ def phase_dryrun(root: str, card: str) -> None:
             temp_size_in_bytes=mem.get("temp_size_in_bytes", "-"),
             alias_size_in_bytes=mem.get("alias_size_in_bytes", "-"),
             t_build_s=rec["t_build_s"], t_trace_s=rec["t_trace_s"],
-            mode=rec["meta"].get("mode", "-"), card=json.dumps(card))
+            mode=rec["meta"].get("mode", "-"), **ann_counts,
+            card=json.dumps(card))
         n += 1
     log("dryrun", records=n, wall_s=f"{time.perf_counter() - t0:.2f}")
     require(n == 3 * 2 * 2 + 2, f"{n} dry-run records")
@@ -1586,11 +1600,18 @@ def phase_dryrun(root: str, card: str) -> None:
 
 # the dry run's peak held against the card (`[dryrun_peak]`): (arch,
 # shape, whether the peak is an upper bound only). dlrm-rm2's is: its
-# sparse gradients' nnz and its meta lookup's ids are upper bounds.
+# sparse gradients' nnz and its meta lookup's ids are upper bounds. The
+# ANN cells: sift1m in mode A (62,500 rows a shard, 64 queries), sift1b
+# in mode B (3,906,250 rows, 8.0 GB, 1,024 queries in 8 chunks).
 PEAK_CELLS = (("qwen3-1.7b", "decode_32k", False),
               ("qwen3-1.7b", "train_4k", False),
-              ("dlrm-rm2", "train_batch", True))
+              ("dlrm-rm2", "train_batch", True),
+              ("aisaq-sift1m", "serve_q1k", False),
+              ("aisaq-sift1b", "serve_q1k", False))
 PEAK_REL, PEAK_SLACK = 0.10, 256 << 20     # the band: 10% or 256 MB
+# an ANN cell's band: its peak is tens of MB, which PEAK_SLACK would pass
+# whatever it was
+ANN_PEAK_REL, ANN_PEAK_SLACK = 0.10, 2 << 20
 
 
 def card_args(cell, local, seed: int = 0):
@@ -1659,14 +1680,117 @@ def card_args(cell, local, seed: int = 0):
     return args, how
 
 
+def ann_card_args(cell, local, seed: int = 0):
+    """An ANN cell's `local` (the rank's meta shard and query block) as a
+    real shard on the card: vectors of the index's dtype, random PQ codes
+    and a random R-regular graph (`vamana.random_regular_graph`), packed
+    by `pack_chunks_torch`, so every neighbour id a hop reads is a row of
+    the shard; random centroids; entry points below N_s with their codes;
+    offset 0; the queries drawn in the vectors' range. Returns (args,
+    {field: how})."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.chunk_layout import layout_for, pack_chunks_torch
+    from repro_torch.core.sharded_search import ShardedIndexArrays
+    from repro_torch.core.vamana import random_regular_graph
+    cfg = get_arch(cell.arch_id).model
+    lay = layout_for(cfg, "aisaq")
+    arrays, queries = local
+    n_s = arrays.chunk_words.shape[1]
+    g = torch.Generator("cuda").manual_seed(seed)
+    if cfg.data_dtype == "uint8":
+        vecs = torch.randint(0, 256, (n_s, cfg.dim), generator=g,
+                             device="cuda", dtype=torch.uint8)
+        q = torch.rand(tuple(queries.shape), generator=g,
+                       device="cuda") * 255
+    else:
+        vecs = torch.randn((n_s, cfg.dim), generator=g, device="cuda")
+        q = torch.randn(tuple(queries.shape), generator=g, device="cuda")
+    codes = torch.randint(0, cfg.pq_ks, (n_s, cfg.pq_m), generator=g,
+                          device="cuda", dtype=torch.uint8)
+    graph = random_regular_graph(n_s, cfg.R, seed=seed, device="cuda")
+    words = pack_chunks_torch(vecs, graph, codes, lay)
+    del vecs, graph
+    ep = torch.randint(0, n_s, (cfg.n_ep,), generator=g, device="cuda",
+                       dtype=torch.int32)
+    cent = torch.randn(tuple(arrays.centroids.shape), generator=g,
+                       device="cuda")
+    if cfg.data_dtype == "uint8":
+        cent = cent * 40 + 128
+    args = (ShardedIndexArrays(
+        chunk_words=words[None], centroids=cent, ep_ids=ep[None],
+        ep_codes=codes[ep.long()].to(torch.int32)[None],
+        offsets=torch.zeros((1,), dtype=torch.int32, device="cuda")), q)
+    got = [(tuple(t.shape), t.dtype) for t in (*args[0], args[1])]
+    want = [(tuple(t.shape), t.dtype) for t in (*arrays, queries)]
+    require(got == want, f"the card's shard {got} is not local_args' "
+            f"{want}")
+    how = {"chunk_words": f"pack_chunks_torch({cfg.data_dtype} vectors, "
+           f"random_regular_graph(R={cfg.R}), random codes)",
+           "centroids": "normal", "ep_ids": "uniform < N_s",
+           "ep_codes": "the entry points' codes", "offsets": "zero",
+           "queries": "uniform 0-255" if cfg.data_dtype == "uint8"
+           else "normal"}
+    return args, how
+
+
+def ann_search_peak(cell, args) -> dict:
+    """The cell's `fn` on the card twice, each time with its local
+    searches (`sharded_search.beam_search_device`) recorded: first with
+    every search eager (`cuda_graph=False`: the ops the dry run traces,
+    with the merge after them), whose peak device bytes above what was
+    allocated before it and launches are returned; then as served, its
+    first call capturing the CUDA graphs (peak logged, not judged). The
+    searches' ids must be valid and equal between the two runs."""
+    import torch
+    from repro_torch.core import sharded_search as SS
+    from repro_torch.kernels import _build
+    served = SS.beam_search_device
+
+    def run(graph: bool):
+        got = []
+
+        def search(*a, **kw):
+            out = served(*a, cuda_graph=graph, **kw)
+            got.append(out)
+            return out
+        SS.beam_search_device = search
+        try:
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cell.fn(*args)
+            torch.cuda.synchronize()
+            return got, torch.cuda.max_memory_allocated() - before, \
+                time.perf_counter() - t0, dict(_build.launch_counts)
+        finally:
+            SS.beam_search_device = served
+    eager, measured, t_step, launches = run(False)
+    graphed, graph_peak, t_graph, _ = run(True)
+    ids = torch.cat([e[0] for e in eager])
+    require(bool((ids >= 0).all()), f"{cell.arch_id}: an eager search "
+            "answered fewer than k ids")
+    require(all(torch.equal(e[0], g[0]) and e[2] == g[2]
+                for e, g in zip(eager, graphed)),
+            f"{cell.arch_id}: the eager and graph searches differ")
+    return dict(measured=measured, t_step_s=round(t_step, 2),
+                graph_first_call_peak=graph_peak,
+                t_graph_s=round(t_graph, 2), hops=[e[2] for e in eager],
+                launches={k: v for k, v in launches.items() if v})
+
+
 def dryrun_peak_cell(arch_id: str, shape_name: str) -> dict:
     """One cell in a fake 256-rank world on the card: the dry run's record
     (`dryrun.run_cell`, meta), then rank 0's step once on CUDA tensors of
     the same blocks (`card_args`); the step's peak device bytes above
-    what was allocated before it."""
+    what was allocated before it. An ANN cell's blocks are a real shard
+    (`ann_card_args`) and its step runs eagerly (`ann_search_peak`)."""
     import gc
 
     import torch
+    from repro_torch.configs import get_arch
     from repro_torch.distributed.act_sharding import set_policy
     from repro_torch.launch import dryrun
     from repro_torch.launch.inputs import build_cell, local_args
@@ -1677,31 +1801,42 @@ def dryrun_peak_cell(arch_id: str, shape_name: str) -> dict:
     t_meta = time.perf_counter() - t0
     grid = make_production_grid()
     set_policy(grid)
+    ann = get_arch(arch_id).family == "ann"
+    extra = {}
     try:
         cell = build_cell(arch_id, shape_name, grid)
         base = torch.cuda.memory_allocated()
-        args, how = card_args(cell, local_args(cell, grid))
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
-        out = cell.fn(*args)
+        args, how = (ann_card_args if ann else card_args)(
+            cell, local_args(cell, grid))
         torch.cuda.synchronize()
-        t_step = time.perf_counter() - t1
-        measured = torch.cuda.max_memory_allocated() - before
+        t_args = time.perf_counter() - t1
+        before = torch.cuda.memory_allocated()
+        if ann:
+            extra = ann_search_peak(cell, args)
+            measured, t_step = extra.pop("measured"), extra.pop("t_step_s")
+            extra.update(t_args_s=round(t_args, 2), ann=True)
+        else:
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            out = cell.fn(*args)
+            torch.cuda.synchronize()
+            t_step = time.perf_counter() - t1
+            measured = torch.cuda.max_memory_allocated() - before
+            del out
     finally:
         set_policy(None)
     draws = {}
     for path, h in how.items():
         draws.setdefault(h, []).append(path)
-    del out, args, cell
+    del args, cell
     gc.collect()
     torch.cuda.empty_cache()
     return dict(arch=arch_id, shape=shape_name, measured=measured,
                 arg_bytes=before - base, memory=rec["memory"],
                 t_meta_s=round(t_meta, 2), t_step_s=round(t_step, 2),
                 draws={h: p if h != "normal" else len(p)
-                       for h, p in draws.items()})
+                       for h, p in draws.items()}, **extra)
 
 
 _DRYRUN_PEAK = """
@@ -1741,7 +1876,7 @@ def stop_dryrun_peak(run) -> None:
     err.close()
 
 
-def phase_dryrun_peak(run, card: str) -> None:
+def phase_dryrun_peak(run, card: str) -> dict:
     """[dryrun_peak]: the dry run's `peak_bytes` against the card's
     allocator. One subprocess (`start_dryrun_peak`) starts a fake world
     of 256 ranks (its collectives move nothing: values are garbage after
@@ -1749,7 +1884,9 @@ def phase_dryrun_peak(run, card: str) -> None:
     rank 0: the dry run's meta trace, then the step on CUDA tensors,
     measuring max_memory_allocated() - memory_allocated() before the
     call. Within `PEAK_REL` or `PEAK_SLACK` of the peak, whichever is
-    larger; an upper-bound cell at most `PEAK_SLACK` above it."""
+    larger (an ANN cell: `ANN_PEAK_REL` or `ANN_PEAK_SLACK`); an
+    upper-bound cell at most `PEAK_SLACK` above it. Returns the ANN
+    cells' eager searches' launches."""
     proc, out, err = run
     try:
         proc.wait(timeout=400)
@@ -1764,10 +1901,22 @@ def phase_dryrun_peak(run, card: str) -> None:
     got = [json.loads(x) for x in text.splitlines() if x.startswith("{")]
     require(len(got) == len(PEAK_CELLS), f"{len(got)} cells measured")
     bad = []
+    launches = {}
     for res, (_, _, upper) in zip(got, PEAK_CELLS):
         mem, measured = res["memory"], res["measured"]
         peak = mem["peak_bytes"]
-        band = max(PEAK_REL * peak, PEAK_SLACK)
+        ann = res.get("ann", False)
+        band = max(ANN_PEAK_REL * peak, ANN_PEAK_SLACK) if ann else \
+            max(PEAK_REL * peak, PEAK_SLACK)
+        ann_log = {}
+        if ann:
+            ann_log = dict(
+                hops=compact(res["hops"]),
+                graph_first_call_peak_bytes=res["graph_first_call_peak"],
+                t_graph_s=res["t_graph_s"], t_args_s=res["t_args_s"],
+                launches=compact(res["launches"]))
+            for k, v in res["launches"].items():
+                launches[k] = launches.get(k, 0) + v
         log("dryrun_peak", arch=res["arch"], shape=res["shape"],
             measured_peak_bytes=measured, dryrun_peak_bytes=peak,
             ratio=f"{measured / peak:.4f}" if peak else "-",
@@ -1778,13 +1927,17 @@ def phase_dryrun_peak(run, card: str) -> None:
             alias_size_in_bytes=mem["alias_size_in_bytes"],
             output_size_in_bytes=mem["output_size_in_bytes"],
             t_meta_s=res["t_meta_s"], t_step_s=res["t_step_s"],
-            draws=compact(res["draws"]), card=json.dumps(card))
+            draws=compact(res["draws"]), **ann_log, card=json.dumps(card))
         ok = measured <= peak + PEAK_SLACK if upper else \
             abs(measured - peak) <= band
         if not ok:
             bad.append(f"{res['arch']} {res['shape']}: the card's peak "
                        f"{measured} against the dry run's {peak}")
     require(not bad, "; ".join(bad))
+    require(launches.get("fused_hop_f32", 0) > 0
+            and launches.get("pq_lut", 0) > 0,
+            "the ANN cells launched no hop_kernel<false> or pq_lut_kernel")
+    return launches
 
 
 def phase_diskann(arrays, aisaq_idx, aisaq_lay, queries, gt, aisaq_ids):
@@ -6355,7 +6508,8 @@ def run_phases(root: str) -> int:
     peak_run = start_dryrun_peak(root)
     try:
         idx, lay, queries, gt, arrays = timed("build10k", build_index_10k)
-        timed("dryrun_peak", phase_dryrun_peak, peak_run, card_line())
+        peak_launches = timed("dryrun_peak", phase_dryrun_peak, peak_run,
+                              card_line())
     finally:
         stop_dryrun_peak(peak_run)
     # the first profiler window: after the build's host-only minutes (see
@@ -6472,6 +6626,7 @@ def run_phases(root: str) -> int:
             "launches_sharded1m": sharded1m_launches.get(name, 0),
             "launches_towers": tower_launches.get(name, 0),
             "launches_cells": cells_launches.get(name, 0),
+            "launches_dryrun_peak": peak_launches.get(name, 0),
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b, "bound_by": by,
             "library_ms": t["library_ms"],

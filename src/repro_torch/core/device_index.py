@@ -224,12 +224,13 @@ class _Search:
         self.cand_ids = torch.empty((nq, L), dtype=torch.int32, device=dev)
         self.cand_d = torch.empty((nq, L), dtype=torch.float32, device=dev)
         self.cand_exp = torch.empty((nq, L), dtype=torch.bool, device=dev)
-        # visited set: one bit per node, 32 bits in each int64 word. Ids are
-        # deduplicated before insertion, so each bit is added at most once
-        # and scatter-add is a bitwise OR; two ids may share a word in one
-        # hop, which a plain index_put would lose.
+        # visited set: one bit per node in int32 words, as the reference's
+        # uint32 words (bit 31 is the sign bit). Ids are deduplicated
+        # before insertion, so each bit is added at most once and
+        # scatter-add is a bitwise OR that never overflows; two ids may
+        # share a word in one hop, which a plain index_put would lose.
         self.inserted = torch.empty((nq, -(-index.n // 32)),
-                                    dtype=torch.int64, device=dev)
+                                    dtype=torch.int32, device=dev)
         self.pool_ids = torch.empty((nq, L), dtype=torch.int32, device=dev)
         self.pool_d = torch.empty((nq, L), dtype=torch.float32, device=dev)
         self.hop_count = torch.zeros((), dtype=torch.int32, device=dev)
@@ -264,8 +265,7 @@ class _Search:
         self.cand_exp[:, :n_ep] = False
         self.inserted.zero_()
         self.inserted.scatter_add_(1, (ep_ids >> 5).long(),
-                                   torch.ones_like(ep_ids, dtype=torch.int64)
-                                   << (ep_ids & 31).long())
+                                   torch.ones_like(ep_ids) << (ep_ids & 31))
         self.pool_ids.fill_(-1)
         self.pool_d.fill_(torch.inf)
         self.hop_count.zero_()
@@ -314,7 +314,8 @@ class _Search:
         nd_f = torch.where(bad, torch.inf, nd_f)
         nids_f = torch.where(bad, -1, nids_f)
         safe = nids_f.clamp(0, N - 1).long()
-        bits = torch.where(bad, 0, torch.ones_like(safe) << (safe & 31))
+        bits = torch.where(bad, 0, torch.ones_like(nids_f)
+                           << (safe & 31).to(torch.int32))
         self.inserted.scatter_add_(1, safe >> 5, bits)
         # 5. trim candidate list to L by PQ distance
         all_ids = torch.cat([cand_ids, nids_f], 1)

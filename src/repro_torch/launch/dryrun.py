@@ -31,7 +31,8 @@ input (`launch.inputs.local_args`). Each cell writes one JSON record:
     make the peak an upper bound;
   * `cost`: `flops`, the rank's (`torch.utils.flop_counter.
     FlopCounterMode`: matrix products and attention; elementwise ops,
-    gathers and segment sums count 0), and `flops_x_ranks_over_model`,
+    gathers and segment sums count 0; plus the ANN kernels' charges,
+    below), and `flops_x_ranks_over_model`,
     flops x ranks / the cell's model flops (1 where the ranks split the
     useful work, the world's size where each rank does all of it);
     `bytes accessed`, op by op (every tensor argument read and every
@@ -40,7 +41,9 @@ input (`launch.inputs.local_args`). Each cell writes one JSON record:
     port's traffic, not XLA's fused figure) and `transcendentals` (the
     output elements of exp, log, tanh, sigmoid, erf, rsqrt, sqrt, pow,
     sin and cos); `note` says what the counts are and where a meta-only
-    branch makes them upper bounds;
+    branch makes them upper bounds; an ANN cell adds `hops_counted` (1),
+    `per_hop` (the flops and bytes of its hops) and `kernels` (what its
+    stand-ins charged, by kernel);
   * `collectives`: {op: {count, bytes}} of every collective of
     `launch.mesh` during the step (`record_collectives`: the reference's
     op names, bytes the output on this rank a time).
@@ -53,15 +56,17 @@ tables' sparse gradients and Wide&Deep's densified `wide/*` gradients.
 the first trace, in this process alone (no served module registers them):
 a coalesce keeps its input's nnz, an upper bound (on the card it removes
 the duplicate ids), and those cells' `cost` and `collectives` say so in a
-`note`. An ANN cell's search runs CUDA graphs and kernels, which meta
-tensors cannot run: its record counts the
-merge's two all-gathers of (n_shards, B_l, k) from the output shapes
-(`core.sharded_search`) and says so. Skipped cells write a skip record.
-Exits 1 if any cell fails.
+`note`. An ANN cell's search runs kernels and a loop that reads its flag
+from the card, which meta tensors cannot: its trace runs the cell's own
+step through `launch.ann_trace`'s stand-ins (the prologue, one hop a
+query chunk and the merge; the kernels charged as the card runs them),
+and `ANN_NOTE` says so. Skipped cells write a skip record. Exits 1 if
+any cell fails.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -77,8 +82,6 @@ from repro_torch.configs import ASSIGNED_ARCHS, get_arch
 from repro_torch.launch.mesh import fake_world, make_production_grid, \
     record_collectives
 
-# the k of the ANN cells' search (`inputs._build_ann_cell`)
-ANN_K = 10
 NNZ_NOTE = ("a sparse gradient's nnz is taken as the rows it read, an upper "
             "bound: on the card a coalesce removes the duplicate ids")
 PEAK_NOTE = ("peak_bytes: the most bytes of storages made during the step "
@@ -104,8 +107,13 @@ LOOKUP_NOTE = ("a row-sharded lookup takes every id as local on meta "
 WIDEN_NOTE = ("off the card mm_f32 widens bfloat16 operands to float32 "
               "(models/layers.bf16_bmm_route): the bytes and the peak "
               "count the widened copies")
-ANN_PEAK_NOTE = ("not traced: the card's peak of the aisaq-sift1m searches "
-                 "is chip_smoke.py's [cells] peak_bytes")
+ANN_NOTE = ("the search counts its prologue, one hop and the merge, as "
+            "the reference's XLA counts the loop's body once (per_hop "
+            "scales it to the hops a search takes); every query chunk is "
+            "counted, where the reference counts one; the pq_lut and "
+            "fused_hop kernels are charged as the card runs them "
+            "(launch/ann_trace.py: the frontier rows, not the chunk "
+            "table), not by their plain versions")
 
 
 def _tensors(tree):
@@ -181,12 +189,14 @@ class Tally(TorchDispatchMode):
     (the conventions of `BYTES_NOTE`) and the bytes of the storages made
     while it is open that are alive: `peak` is their most. Storages that
     exist when it opens (`args`, and any other it first sees as an op's
-    input) are not counted."""
+    input) are not counted. `charge` adds what a stand-in of a kernel
+    moves and computes (`flops`: those charges alone)."""
 
     def __init__(self, args=()):
         super().__init__()
         self.bytes_accessed = 0
         self.transcendentals = 0
+        self.flops = 0.0
         self.live = 0
         self.peak = 0
         # id(storage): (its bytes counted live, a weak reference whose
@@ -210,6 +220,12 @@ class Tally(TorchDispatchMode):
 
     def _free(self, key: int, _ref) -> None:
         self.live -= self._held.pop(key)[0]
+
+    def charge(self, *, bytes: int, flops: float) -> None:
+        """Count the bytes a kernel reads and writes and its flops, for
+        a stand-in that only allocates the kernel's outputs."""
+        self.bytes_accessed += bytes
+        self.flops += flops
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -246,21 +262,6 @@ def _first_error(e: BaseException) -> str:
     return f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"
 
 
-def _ann_record(cell, local) -> dict:
-    """The ANN search's merge on a rank: all-gathers of its (B_l, k)
-    int32 ids and float32 distances over the n_shards of its shard
-    group (this rank's `queries` block is B_l rows)."""
-    n = cell.meta["n_shards"]
-    b_l = local[1].shape[0]
-    each = n * b_l * ANN_K * 4
-    note = ("not traced: the hop loop runs CUDA graphs and kernels; the "
-            "merge's two all-gathers are counted from the output shapes")
-    return {"collectives": {"all-gather": {"count": 2, "bytes": 2 * each}},
-            "collectives_note": note,
-            "cost": {"flops": None, "note": note},
-            "output_size_in_bytes": b_l * ANN_K * 8}
-
-
 _SPARSE_META = []            # the registration's Library, kept alive
 _coalesced = [0]             # coalesces traced in this process
 
@@ -290,20 +291,26 @@ def install_sparse_meta() -> None:
     _SPARSE_META.append(lib)
 
 
-def trace(fn, args) -> dict:
+def trace(fn, args, standins=None) -> dict:
     """One call of fn(*args) on meta tensors: its flops, collectives,
     bytes accessed, transcendentals, peak, output and alias bytes, and
-    whether it coalesced a sparse tensor."""
+    whether it coalesced a sparse tensor. `standins(tally, flops)`, a
+    context manager (`ann_trace.standins`), is open during the call; what
+    it yields is returned under "standins"."""
     from torch.utils.flop_counter import FlopCounterMode
     install_sparse_meta()
     before = _coalesced[0]
     arg_st = {id(st) for t in _tensors(args) for st in _storages(t)}
     with record_collectives() as coll, \
             FlopCounterMode(display=False) as fc, Tally(args) as tally:
-        out = fn(*args)
+        def flops():
+            return fc.get_total_flops() + tally.flops
+        with (standins(tally, flops) if standins
+              else contextlib.nullcontext()) as extra:
+            out = fn(*args)
     alias = sum(_bytes(t) for t in _tensors(out)
                 if any(id(st) in arg_st for st in _storages(t)))
-    return {"flops": float(fc.get_total_flops()), "collectives": coll,
+    return {"flops": float(flops()), "collectives": coll, "standins": extra,
             "bytes accessed": tally.bytes_accessed,
             "transcendentals": tally.transcendentals,
             "peak_bytes": tally.peak, "output_size_in_bytes": _nbytes(out),
@@ -358,22 +365,21 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
                "memory": {"argument_size_in_bytes": local_bytes(cell, grid)}}
         t0 = time.time()
         ann = get_arch(arch_id).family == "ann"
+        standins = None
         if ann:
-            got = _ann_record(cell, local)
-            rec["collectives_note"] = got.pop("collectives_note")
-        else:
-            try:
-                got = trace(cell.fn, local)
-            except Exception as e:             # a section per failure
-                if verbose:
-                    traceback.print_exc()
-                err = {"error": "trace: " + _first_error(e)}
-                got = {"cost": err, "collectives": err}
+            from repro_torch.launch.ann_trace import standins
+        try:
+            got = trace(cell.fn, local, standins)
+        except Exception as e:                 # a section per failure
+            if verbose:
+                traceback.print_exc()
+            err = {"error": "trace: " + _first_error(e)}
+            got = {"cost": err, "collectives": err}
         rec["t_trace_s"] = round(time.time() - t0, 2)
     finally:
         set_policy(None)
     mem = rec["memory"]
-    notes = [] if ann else branch_notes(cell, grid, cp_attn=cp_attn)
+    notes = [ANN_NOTE] if ann else branch_notes(cell, grid, cp_attn=cp_attn)
     if got.get("sparse"):
         notes.append(NNZ_NOTE)
     if "output_size_in_bytes" in got:
@@ -383,8 +389,7 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
         mem.update(peak_bytes=got["peak_bytes"],
                    temp_size_in_bytes=max(0, got["peak_bytes"] - made),
                    alias_size_in_bytes=got["alias_size_in_bytes"])
-    mem["peak_note"] = ANN_PEAK_NOTE if ann else "; ".join([PEAK_NOTE,
-                                                           *notes])
+    mem["peak_note"] = "; ".join([PEAK_NOTE, *notes])
     if "cost" in got:
         rec["cost"] = got["cost"]
     else:
@@ -395,6 +400,10 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
                        "bytes accessed": got["bytes accessed"],
                        "transcendentals": got["transcendentals"],
                        "note": "; ".join([BYTES_NOTE, *notes])}
+        if ann:
+            s = got["standins"]
+            rec["cost"].update(hops_counted=1, per_hop=s.per_hop,
+                               kernels=s.kernels)
     rec["collectives"] = got["collectives"]
     if got.get("sparse"):
         rec["collectives"]["note"] = NNZ_NOTE

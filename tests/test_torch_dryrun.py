@@ -7,9 +7,10 @@ steps it traces, on the CPU.
   full_graph_sm, aisaq-sift1b serve_q1k and the four recommenders'
   train_batch. Each record has every section without an error, its
   argument bytes are the rank's blocks (`inputs.local_bytes`), its
-  collectives are those of the step, and each traced record carries the
+  collectives are those of the step, and each record carries the
   reference's peak, temp and alias bytes (alias: the donated state or
-  cache), bytes accessed and transcendentals, with their notes. The
+  cache), bytes accessed and transcendentals, with their notes (the ANN
+  cell's through the stand-ins of its kernels, `launch.ann_trace`). The
   training cells' sparse gradients trace through the dry run's own
   sparse meta kernels, which importing the served modules does not
   register.
@@ -93,33 +94,41 @@ def test_dryrun_record_on_the_fake_256_rank_world(records, arch_id,
     assert rec["meta"]["model_flops"] == cell.meta["model_flops"]
     coll = rec["collectives"]
     mem, cost = rec["memory"], rec["cost"]
-    if arch_id != "aisaq-sift1b":
-        # the reference's memory and cost fields: temp is the peak less
-        # the outputs the step made; alias the outputs in argument storage
-        # (the cache written in place, the trained state)
-        made = mem["output_size_in_bytes"] - mem["alias_size_in_bytes"]
-        assert mem["temp_size_in_bytes"] == max(0, mem["peak_bytes"] - made)
-        assert 0 < mem["peak_bytes"] < 80e9
-        assert cost["bytes accessed"] > mem["peak_bytes"]
-        assert cost["transcendentals"] >= 0
-        assert mem["peak_note"].startswith(dryrun.PEAK_NOTE)
-        assert cost["note"].startswith(dryrun.BYTES_NOTE)
-        donated = sum(I._block(t, s, grid, None).numel() * t.element_size()
-                      for p, t, s in I.arg_leaves(cell)
-                      if int(p.split("/")[0]) in cell.donate)
-        assert mem["alias_size_in_bytes"] == donated
+    # the reference's memory and cost fields: temp is the peak less the
+    # outputs the step made; alias the outputs in argument storage (the
+    # cache written in place, the trained state)
+    made = mem["output_size_in_bytes"] - mem["alias_size_in_bytes"]
+    assert mem["temp_size_in_bytes"] == max(0, mem["peak_bytes"] - made)
+    assert 0 < mem["peak_bytes"] < 80e9
+    assert cost["bytes accessed"] > mem["peak_bytes"]
+    assert cost["transcendentals"] >= 0
+    assert mem["peak_note"].startswith(dryrun.PEAK_NOTE)
+    assert cost["note"].startswith(dryrun.BYTES_NOTE)
+    donated = sum(I._block(t, s, grid, None).numel() * t.element_size()
+                  for p, t, s in I.arg_leaves(cell)
+                  if int(p.split("/")[0]) in cell.donate)
+    assert mem["alias_size_in_bytes"] == donated
     if arch_id == "aisaq-sift1b":
-        # mode B: 256 shards, the 1,024 queries replicated: two gathers
-        # of (256, 1024, 10) int32 / float32
+        # mode B: 256 shards, the 1,024 queries replicated and searched
+        # in 8 chunks of 128, traced through the kernels' stand-ins (one
+        # hop a chunk); two gathers of (256, 1024, 10) int32 / float32
         assert rec["meta"]["mode"] == "B"
-        assert "peak_bytes" not in mem
-        assert mem["peak_note"] == dryrun.ANN_PEAK_NOTE
+        assert dryrun.ANN_NOTE in mem["peak_note"]
+        assert dryrun.ANN_NOTE in cost["note"]
+        assert cost["hops_counted"] == 1
+        assert cost["kernels"]["fused_hop_f32"]["launches"] == 8
+        assert cost["kernels"]["pq_lut"]["launches"] == 8
+        assert mem["output_size_in_bytes"] == 1024 * 10 * 8
+        # every chunk's visited set: 128 queries x ceil(N_s / 32) int32
+        # words, alive one chunk at a time
+        cfg = get_arch(arch_id).model
+        n_s = -(-cfg.n_vectors // 256)
+        assert mem["peak_bytes"] > 128 * -(-n_s // 32) * 4
         assert coll == {"all-gather": {"count": 2,
                                        "bytes": 2 * 256 * 1024 * 10 * 4}}
         # the rank's shard of the chunk table, the centroids, its entry
         # points and offset, and all the queries
         from repro_torch.core.chunk_layout import layout_for
-        cfg = get_arch(arch_id).model
         stride = layout_for(cfg, "aisaq").device_stride
         assert rec["memory"]["argument_size_in_bytes"] == 4 * (
             -(-cfg.n_vectors // 256) * stride // 4 + cfg.dim * cfg.pq_ks

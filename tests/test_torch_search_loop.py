@@ -129,6 +129,56 @@ def test_padded_rows_change_no_answer(indices, small_corpus):
                                                                 d[i])
 
 
+def _packed(ids, n_words: int) -> np.ndarray:
+    """The uint32 words of a visited set holding `ids`."""
+    words = np.zeros(n_words, np.uint32)
+    for i in ids:
+        words[i >> 5] |= np.uint32(1) << np.uint32(i & 31)
+    return words
+
+
+@pytest.mark.parametrize("ep", [31, 63])
+def test_visited_bit_31_is_an_int32_words_sign_bit(indices, small_corpus,
+                                                   built_graph, pq_artifacts,
+                                                   ep):
+    """The visited set is int32 words, as the reference's uint32 ones:
+    from an entry point whose bit is 31 (the sign bit), the words after
+    the prologue and after one hop are the packed set of the nodes
+    inserted (bit for bit as uint32), and the search's ids and hops equal
+    the reference's from the same entry point."""
+    import dataclasses
+    _, q, _ = small_corpus
+    _, codes = pq_artifacts
+    (jidx, jlay), (tidx, tlay) = indices["aisaq"]
+    ep_codes = codes[ep][None].astype(np.int32)
+    tidx = dataclasses.replace(
+        tidx, ep_ids=torch.tensor([ep], dtype=torch.int32),
+        ep_codes=torch.from_numpy(ep_codes), graphs={})
+    jidx = jidx._replace(ep_ids=jnp.asarray([ep], jnp.int32),
+                         ep_codes=jnp.asarray(ep_codes))
+    s = _search(tidx, tlay, q, 16)
+    assert s.inserted.dtype == torch.int32
+    n_words = s.inserted.shape[1]
+    assert (s.inserted.numpy().view(np.uint32)
+            == _packed([ep], n_words)).all()
+    assert (s.inserted[:, ep >> 5] < 0).all()         # the sign bit
+    s.hops(1)
+    nbrs = built_graph[ep][built_graph[ep] >= 0].tolist()
+    words = s.inserted.numpy().view(np.uint32)
+    assert (words[:len(q)] == _packed([ep, *nbrs], n_words)).all()
+    # padded rows never hop: the entry point's bit alone
+    assert (words[len(q):] == _packed([ep], n_words)).all()
+    for max_hops in (1, 128):
+        jids, _, jhops = jdi.beam_search_device(
+            jidx, jnp.asarray(q), k=10, L=40, layout=jlay, metric="l2",
+            backend="ref", max_hops=max_hops)
+        ids, _, hops = tdi.beam_search_device(
+            tidx, torch.from_numpy(q), k=10, L=40, layout=tlay,
+            max_hops=max_hops)
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+        assert hops == int(jhops)
+
+
 def test_search_checks_its_arguments(indices, small_corpus):
     _, q, _ = small_corpus
     _, (tidx, tlay) = indices["aisaq"]
