@@ -294,7 +294,30 @@ non-zero):
      same ranks' CPU answer, `pipeline_forward` over 4 stages bit-equal to
      the stages in sequence, and its gradients (weights and inputs)
      within TOL_PIPE of autograd through the stages in sequence; no
-     `[dist_*]` phase launches a port kernel.
+     `[dist_*]` phase launches a port kernel;
+ 31. `[examples]` (its lines print during phase 3's 10k build: it runs
+     in one spawned process beside that build's host-only Vamana graph,
+     and the build waits for it before any timed phase): the port's five
+     examples (`examples/*_torch.py`), each `run()` called in that
+     process at the original's sizes, one at a time, its launch counts
+     reset just before and read just after:
+     quickstart (5,000 x 64; recall@10 >= 0.8 in both placements, the
+     prefetch-4 ids equal, AiSAQ ids equal DiskANN's, nav-entry
+     recall@10 >= 0.8), dynamic_corpus (doc 1550 in its own top-5, no
+     label 1500-1509 after the deletes, every filtered id even, the
+     filtered top-5 equal after flush and reload at n = 1,600; then once
+     more as `python3 examples/dynamic_corpus_torch.py`), rag_retrieval
+     (the 12 answers equal to a direct `HostIndex` search of their corpus
+     on the card with the same L, k and rerank; 3 corpora open, no
+     eviction), distributed_search (8 spawned gloo ranks on a (2, 4)
+     grid; recall@10 >= 0.8, ids equal to the 4 shards searched in this
+     process and merged, top-10 agreement with the plain path >= 0.99,
+     each rank's launches) and train_lm (48.2M parameters, 100 of the
+     original's 200 steps, a failure before step 60 resumed from step
+     50: one restart, finite losses bit-equal to an uninterrupted run's,
+     the last below the first); examples 1-4 each launch
+     `fused_hop_f32` and `pq_lut` (every rank of the distributed one),
+     train_lm none.
 Each path's launch counts are reset just before it and read just after;
 the kernels line gives the main path's as `launches`, the storage
 path's as `launches_storage`, the dynamic index's (inserts and readers)
@@ -302,7 +325,8 @@ as `launches_dynamic`, the service's as `launches_service`, the sharded
 phases' (every rank's timed searches, summed) as `launches_sharded` and
 `launches_sharded1m`, the towers' graph requests as
 `launches_towers`, the `[cells]` searches' as `launches_cells`, the
-`[dryrun_peak]` ANN cells' eager searches as `launches_dryrun_peak`;
+`[dryrun_peak]` ANN cells' eager searches as `launches_dryrun_peak`,
+the five examples' (every rank's) as `launches_examples`;
 `segment_sum`'s `launches` are the GNN serving
 path's, and every row has `launches_gnn_train` and
 `launches_gnn_sharded` (every rank's timed float32 step). Each phase's seconds are printed as it ends
@@ -6464,6 +6488,324 @@ def phase_dist(world: "RankWorld", root: str, card: str) -> None:
     timed("dist_parts", phase_dist_parts, world, card)
 
 
+# ---------------------------------------------------------------------------
+# [examples]: the port's five examples at their own sizes
+# ---------------------------------------------------------------------------
+
+# the kernels each ANN example must launch: rows 1 and 3 of the TPU kernels
+EXAMPLE_KERNELS = ("fused_hop_f32", "pq_lut")
+# the LM example's depth on the card: 100 steps (the original runs 200),
+# the failure before step 60, so it resumes from the step-50 checkpoint
+# (the example checkpoints every 25 steps)
+EXAMPLE_LM_STEPS, EXAMPLE_LM_FAIL, EXAMPLE_LM_RESUME = 100, 60, 50
+
+
+def example(name: str):
+    """examples/<name>_torch.py as a module (the directory on sys.path, so
+    the distributed example's spawned ranks import it by name too)."""
+    import importlib
+    path = os.path.join(ROOT, "examples")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(f"{name}_torch")
+
+
+def counted_run(fn, **kw):
+    """fn(**kw) with the launch counts reset just before and read just
+    after: (its result, the launches, seconds)."""
+    from repro_torch.kernels import _build
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn(**kw)
+    s = time.perf_counter() - t0
+    return out, dict(_build.launch_counts), s
+
+
+def nonzero(launches: dict) -> dict:
+    return {k: n for k, n in launches.items() if n}
+
+
+def launched_rows(launches: dict) -> bool:
+    return all(launches.get(k, 0) > 0 for k in EXAMPLE_KERNELS)
+
+
+def example_shard_merge(out: dict, backend: str) -> np.ndarray:
+    """The distributed example's shards searched one after another in this
+    process on the card with its search arguments (`backend` "auto": the
+    kernels, "ref": the plain path), ids made global, merged as the
+    ranks merge them."""
+    import torch
+    from repro_torch.core.chunk_layout import ChunkLayout
+    from repro_torch.core.device_index import beam_search_device, from_numpy
+    from repro_torch.core.sharded_search import merge_shards
+    a = out["arrays"]
+    q = torch.from_numpy(out["queries"]).cuda()
+    all_ids, all_d = [], []
+    for s in range(a.chunk_words.shape[0]):
+        idx = from_numpy(a.chunk_words[s], a.centroids, a.ep_ids[s],
+                         a.ep_codes[s], device="cuda")
+        ids, d, _ = beam_search_device(
+            idx, q, layout=ChunkLayout(*out["layout"]), metric="l2",
+            backend=backend, **out["search"])
+        valid = ids >= 0
+        all_ids.append(torch.where(valid, ids + int(a.offsets[s]),
+                                   -1).to(torch.int32))
+        all_d.append(torch.where(valid, d, torch.inf))
+    ids, _ = merge_shards(torch.stack(all_ids), torch.stack(all_d),
+                          out["search"]["k"])
+    return ids.cpu().numpy()
+
+
+def examples_quickstart(root: str, card: str) -> dict:
+    out, launches, s = counted_run(example("quickstart").run,
+                                   workdir=os.path.join(root, "ex_quick"))
+    mo = out["modes"]
+    for mode, r in mo.items():
+        log("examples", example="quickstart", mode=mode,
+            build_s=f"{r['build_s']:.2f}", load_ms=f"{r['load_ms']:.3f}",
+            resident_kb=f"{r['resident_kb']:.1f}", recall1=r["recall1"],
+            recall10=r["recall10"], latency_ms=f"{r['latency_ms']:.3f}",
+            ios=r["ios"], hops=r["hops"], converged=r["converged"],
+            prefetch_equal=bool(np.array_equal(r["ids"],
+                                               r["ids_prefetch"])),
+            blocked_ms=f"{r['blocked_ms']:.3f}",
+            compute_ms=f"{r['compute_ms']:.3f}",
+            **({"nav_recall10": r["nav_recall10"], "nav_hops":
+                r["nav_hops"], "nav_kb": f"{r['nav_kb']:.1f}",
+                "nav_pivots": r["nav_pivots"]} if "ids_nav" in r else {}))
+        require(r["recall10"] >= 0.8,
+                f"quickstart {mode}: recall@10 {r['recall10']}")
+        require(np.array_equal(r["ids"], r["ids_prefetch"]),
+                f"quickstart {mode}: prefetch=4 changed the ids")
+    require(mo["aisaq"]["nav_recall10"] >= 0.8,
+            f"quickstart nav entry: recall@10 {mo['aisaq']['nav_recall10']}")
+    require(out["same"], "quickstart: AiSAQ ids differ from DiskANN's")
+    log("examples", example="quickstart", s=f"{s:.2f}",
+        aisaq_equals_diskann=out["same"], launches=compact(nonzero(launches)),
+        card=json.dumps(card))
+    require(launched_rows(launches),
+            f"quickstart launched {nonzero(launches)}")
+    return launches
+
+
+def examples_dynamic(root: str, card: str) -> dict:
+    out, launches, s = counted_run(example("dynamic_corpus").run,
+                                   workdir=os.path.join(root, "ex_dyn"))
+    log("examples", example="dynamic_corpus", s=f"{s:.2f}",
+        insert_ms=f"{out['insert_ms']:.3f}",
+        fresh_found=out["fresh_found"],
+        deleted_excluded=out["deleted_excluded"],
+        all_even=out["all_even"], reload_same=out["reload_same"],
+        reload_n=out["reload_n"], top5=compact(out["ids_fresh"].tolist()),
+        filtered=compact(out["ids_filtered"].tolist()),
+        launches=compact(nonzero(launches)), card=json.dumps(card))
+    require(out["fresh_found"], "dynamic_corpus: doc 1550 not in its top-5")
+    require(out["deleted_excluded"], "dynamic_corpus: a deleted doc served")
+    require(out["all_even"], "dynamic_corpus: an odd id passed the filter")
+    require(out["reload_same"] and out["reload_n"] == 1600,
+            f"dynamic_corpus: after the reload n={out['reload_n']}, top-5 "
+            f"{out['ids_reloaded'].tolist()}")
+    require(launched_rows(launches),
+            f"dynamic_corpus launched {nonzero(launches)}")
+    # the script form, as a user runs it
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.join(
+        "examples", "dynamic_corpus_torch.py")], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    script_s = time.perf_counter() - t0
+    flags = [line for line in res.stdout.splitlines()
+             if "findable" in line or "excluded" in line
+             or "all even" in line]
+    log("examples", example="dynamic_corpus", form="script", rc=res.returncode,
+        s=f"{script_s:.2f}", lines=json.dumps(flags))
+    require(res.returncode == 0, "examples/dynamic_corpus_torch.py failed: "
+            + res.stderr[-2000:])
+    require(len(flags) == 3 and all("True" in f for f in flags),
+            f"examples/dynamic_corpus_torch.py printed {flags}")
+    return launches
+
+
+def examples_rag(root: str, card: str) -> dict:
+    from repro_torch.core.index_io import HostIndex
+    from repro_torch.serving.engine import make_host_search_fn
+    out, launches, s = counted_run(example("rag_retrieval").run,
+                                   workdir=os.path.join(root, "ex_rag"))
+    # each answer against the same corpus searched directly on the card
+    indexes = {name: HostIndex.load(path, device="cuda")
+               for name, path in out["corpora"].items()}
+    try:
+        mismatches = sum(not np.array_equal(make_host_search_fn(
+            indexes[c], L=out["L"], rerank=out["rerank"])(
+                out["queries"][i:i + 1], out["k"])[0], out["answers"][i])
+            for i, c in enumerate(out["chain"]))
+    finally:
+        for idx in indexes.values():
+            idx.close()
+    ps = out["pool"]
+    lat = out["latency_ms"]
+    log("examples", example="rag_retrieval", s=f"{s:.2f}",
+        answers=len(out["answers"]), mismatches=mismatches,
+        latency_p50_ms=f"{np.percentile(lat, 50):.3f}",
+        latency_max_ms=f"{max(lat):.3f}", pool_open=ps["open"],
+        evictions=ps["evictions"], centroid_shares=ps["centroid_shares"],
+        pool_mb=f"{ps['used_bytes'] / 1e6:.2f}",
+        launches=compact(nonzero(launches)), card=json.dumps(card))
+    require(len(out["answers"]) == 12 and mismatches == 0,
+            f"rag_retrieval: {mismatches} answers differ from a direct "
+            "search")
+    require(ps["open"] == 3 and ps["evictions"] == 0,
+            f"rag_retrieval: pool open {ps['open']}, evictions "
+            f"{ps['evictions']}")
+    require(launched_rows(launches),
+            f"rag_retrieval launched {nonzero(launches)}")
+    return launches
+
+
+def examples_distributed(root: str, card: str) -> dict:
+    out, _, s = counted_run(example("distributed_search").run,
+                            workdir=root)
+    launches = {}
+    add_launches(launches, out["ranks"])
+    one = example_shard_merge(out, "auto")
+    plain = example_shard_merge(out, "ref")
+    same = bool(np.array_equal(out["ids"], one))
+    agree = float(np.mean([len(set(a) & set(b)) / 10.0
+                           for a, b in zip(out["ids"], plain)]))
+    per_rank = {r: nonzero(a["launches"])
+                for r, a in sorted(out["ranks"].items())}
+    log("examples", example="distributed_search", s=f"{s:.2f}",
+        ranks=len(out["ranks"]), grid="x".join(map(str, out["grid"])),
+        recall1=out["recall1"], recall10=out["recall10"],
+        batch_ms=f"{out['batch_ms']:.3f}",
+        equal_to_one_process_merge=same, plain_agreement=agree,
+        rank_launches=compact(per_rank), card=json.dumps(card))
+    require(out["recall10"] >= 0.8,
+            f"distributed_search: recall@10 {out['recall10']}")
+    require(same, "distributed_search: ids differ from the one-process "
+            "merge")
+    require(agree >= 0.99, f"distributed_search: agreement with the plain "
+            f"path {agree}")
+    require(all(launched_rows(a["launches"]) for a in out["ranks"].values()),
+            f"distributed_search: a rank launched {per_rank}")
+    return launches
+
+
+def examples_train_lm(root: str, card: str) -> dict:
+    run = example("train_lm").run
+    kw = dict(steps=EXAMPLE_LM_STEPS, verbose=False)
+    out, launches, s = counted_run(run, fail_at=EXAMPLE_LM_FAIL,
+                                   workdir=os.path.join(root, "ex_lm"), **kw)
+    ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(out["ckpt_dir"]) for f in fs)
+    shutil.rmtree(out["ckpt_dir"])
+    full, full_launches, full_s = counted_run(
+        run, workdir=os.path.join(root, "ex_lm_full"), **kw)
+    shutil.rmtree(full["ckpt_dir"])
+    (once,) = full["segments"]
+    ref = once["losses"]
+    segs = [(g["start"], len(g["losses"]), g["failed"])
+            for g in out["segments"]]
+    bit_equal = all(loss == ref[g["start"] + i] for g in out["segments"]
+                    for i, loss in enumerate(g["losses"]))
+    finite = all(np.isfinite(g["losses"]).all() for g in out["segments"])
+    log("examples", example="train_lm", n_params=out["n_params"],
+        steps=EXAMPLE_LM_STEPS, fail_at=EXAMPLE_LM_FAIL,
+        restarts=out["restarts"], final_step=out["final_step"],
+        segments=compact(segs), bit_equal=bit_equal, finite=finite,
+        first_loss=ref[0], last_loss=ref[-1], s=f"{s:.2f}",
+        uninterrupted_s=f"{full_s:.2f}",
+        uninterrupted_wall_s=f"{once['wall_s']:.2f}",
+        ckpt_bytes=ckpt_bytes,
+        launches=compact(nonzero(launches) | nonzero(full_launches)),
+        card=json.dumps(card))
+    require(out["final_step"] == EXAMPLE_LM_STEPS and out["restarts"] == 1,
+            f"train_lm: final step {out['final_step']}, restarts "
+            f"{out['restarts']}")
+    require(segs == [(0, EXAMPLE_LM_FAIL, True),
+                     (EXAMPLE_LM_RESUME,
+                      EXAMPLE_LM_STEPS - EXAMPLE_LM_RESUME, False)],
+            f"train_lm: segments {segs}")
+    require(finite and np.isfinite(ref).all(), "train_lm: a loss is not "
+            "finite")
+    require(bit_equal, "train_lm: the restarted run's losses differ from "
+            "the uninterrupted run's")
+    require(ref[-1] < ref[0], f"train_lm: last loss {ref[-1]} not below "
+            f"the first {ref[0]}")
+    require(not nonzero(launches) and not nonzero(full_launches),
+            "train_lm launched a kernel")
+    return launches
+
+
+def phase_examples(root: str, card: str) -> dict:
+    """[examples]: the five port examples' `run()` at their own sizes, one
+    at a time, each `require`d as its section of the module docstring
+    says. Returns the launches of all five, summed (every rank's)."""
+    t0 = time.perf_counter()
+    total = {}
+    for name, fn in (("quickstart", examples_quickstart),
+                     ("dynamic_corpus", examples_dynamic),
+                     ("rag_retrieval", examples_rag),
+                     ("distributed_search", examples_distributed),
+                     ("train_lm", examples_train_lm)):
+        launches = timed(f"examples_{name}", fn, root, card)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    log("examples", s=f"{time.perf_counter() - t0:.2f}",
+        launches=compact(nonzero(total)))
+    return total
+
+
+def examples_worker(root: str, card: str, outbox) -> None:
+    """The spawned process of `[examples]`: `phase_examples`' launches, or
+    its traceback, to the parent."""
+    import traceback
+    faulthandler.enable()
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        outbox.put(phase_examples(root, card))
+    except BaseException:
+        outbox.put(traceback.format_exc())
+
+
+def start_examples(root: str):
+    """Start `[examples]` in a spawned process (`examples_worker`, not a
+    daemon: the distributed example spawns its ranks) beside the 10k
+    build, whose Vamana graph holds the host for minutes and the card not
+    at all: the examples are host-bound too (their own Vamana builds), and
+    `stop_examples` waits for them before any timed phase shares the
+    card. Their launch counters are the process's own, read around each
+    `run()` there."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    outbox = ctx.Queue()
+    proc = ctx.Process(target=examples_worker,
+                       args=(root, card_line(), outbox))
+    proc.start()
+    return proc, outbox
+
+
+def stop_examples(run, timeout: float = 900) -> dict:
+    """Wait for `[examples]`' process: its launches, summed; a failed
+    check there fails the run here. Stops the process in any case."""
+    import queue
+    proc, outbox = run
+    try:
+        try:
+            ans = outbox.get(timeout=timeout)
+        except queue.Empty:
+            raise AssertionError(f"[examples] gave no answer in {timeout} "
+                                 "s") from None
+        require(not isinstance(ans, str), f"[examples] failed: {ans}")
+        return ans
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(timeout=10)
+
+
 def main() -> int:
     faulthandler.enable()          # a crash in native code prints its stack
     # PyTorch tears CUPTI down after each profiler window and sets it up
@@ -6506,12 +6848,16 @@ def run_phases(root: str) -> int:
     timed("env", phase_env)
     errs = timed("parity", phase_parity)
     peak_run = start_dryrun_peak(root)
+    examples_run = start_examples(root)
     try:
         idx, lay, queries, gt, arrays = timed("build10k", build_index_10k)
         peak_launches = timed("dryrun_peak", phase_dryrun_peak, peak_run,
                               card_line())
+        examples_launches = timed("examples", stop_examples, examples_run)
     finally:
         stop_dryrun_peak(peak_run)
+        if examples_run[0].is_alive():            # a phase above raised
+            examples_run[0].kill()
     # the first profiler window: after the build's host-only minutes (see
     # the module docstring)
     adc_ops = timed("adc_ops", adc_device_ops)
@@ -6627,6 +6973,7 @@ def run_phases(root: str) -> int:
             "launches_towers": tower_launches.get(name, 0),
             "launches_cells": cells_launches.get(name, 0),
             "launches_dryrun_peak": peak_launches.get(name, 0),
+            "launches_examples": examples_launches.get(name, 0),
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b, "bound_by": by,
             "library_ms": t["library_ms"],

@@ -242,7 +242,8 @@ def train_loop(arch_id: str, shape_name: str, *, steps: int,
     The run starts from the newest checkpoint in `ckpt_dir` when there is
     one (and `resume`), else from `init_state`, else from `state_init()`.
     `fail_at_step` injects a WorkerFailure before that step runs (the
-    fault-tolerance tests); a checkpoint in flight is finished first.
+    fault-tolerance tests), carrying the losses of the steps run so far
+    (`losses`); a checkpoint in flight is finished first.
 
     `grid`: every rank of the grid runs the loop together (`build_trainer`);
     `init_state` is a full state, which each rank shards; the state
@@ -289,6 +290,7 @@ def train_loop(arch_id: str, shape_name: str, *, steps: int,
             if fail_at_step is not None and step == fail_at_step:
                 err = WorkerFailure(f"injected failure at step {step}")
                 err.last_step = step
+                err.losses = losses        # the steps this run took
                 raise err
             t_step = time.perf_counter()
             state, metrics = step_fn(state, batch)

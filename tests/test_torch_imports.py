@@ -1,6 +1,7 @@
-"""Import boundary of the port: `repro_torch` and `chip_smoke.py` import
-neither jax nor the JAX package, its kernel modules import without nvcc,
-and its entry points refuse to run on the CPU unless asked to."""
+"""Import boundary of the port: `repro_torch`, `chip_smoke.py` and the
+port's examples (`examples/*_torch.py`) import neither jax nor the JAX
+package, its kernel modules import without nvcc, and its entry points
+refuse to run on the CPU unless asked to."""
 import ast
 import json
 import os
@@ -28,7 +29,8 @@ def _imported_roots(path: pathlib.Path):
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+        sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -355,3 +357,45 @@ def test_entry_points_need_a_card_or_device_cpu(small_corpus, built_graph,
         call(device="cpu")
     assert make_device_search_fn(idx, lay, device="cpu")(q[:2], 5).shape \
         == (2, 5)
+
+
+#: each port example, the arguments its `main` gets after --device cpu,
+#: and the tiny sizes its `run` is cut to for the CPU
+EXAMPLES = {
+    "quickstart_torch": ([], dict(n=300, d=16, nq=4, R=8, pq_m=4,
+                                  build_L=16, L=16)),
+    "dynamic_corpus_torch": ([], dict(n_base=300, n_new=10, d=16, R=8,
+                                      pq_m=4, build_L=16, L=16, probe=305,
+                                      deleted=(300, 303))),
+    "rag_retrieval_torch": ([], dict(d=16, n_per=300, pq_m=4, R=8,
+                                     build_L=16)),
+    "distributed_search_torch": ([], dict(n=300, d=16, m=4, R=8, nq=4,
+                                          grid=(1, 2))),
+    "train_lm_torch": (["--steps", "3"], dict(widths=None)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLES))
+def test_examples_need_a_card_or_device_cpu(name, tmp_path, monkeypatch,
+                                            capsys):
+    """main([]) raises before any work without a card; with --device cpu
+    (its run cut to tiny sizes) it runs and prints the original's lines."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the examples run on it")
+    import functools
+    import importlib
+    monkeypatch.syspath_prepend(str(ROOT / "examples"))
+    mod = importlib.import_module(name)
+    argv, tiny = EXAMPLES[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)
+    monkeypatch.setattr(mod, "run", functools.partial(
+        mod.run, workdir=str(tmp_path), **tiny))
+    mod.main(["--device", "cpu"] + argv)
+    out = capsys.readouterr().out
+    first = {"quickstart_torch": "== corpus: 300 x 16",
+             "dynamic_corpus_torch": "== building initial 300-doc index",
+             "rag_retrieval_torch": "== building 3 corpora",
+             "distributed_search_torch": "== 300 vectors over 2 index",
+             "train_lm_torch": "training 48M-param LM for 3 steps"}[name]
+    assert first in out
